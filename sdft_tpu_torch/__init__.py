@@ -7,7 +7,8 @@ two packages exchange plans (``plan_from_jax``) and checkpoints
 and numpy, never jax.
 """
 
-from .api import isdft, refresh, roundtrip, roundtrip_hopped, sdft, sdft_power
+from .api import (isdft, isdft_interleaved, refresh, roundtrip, roundtrip_hopped,
+                  sdft, sdft_hopped, sdft_interleaved, sdft_power)
 from .config import DEFAULT_PRECISION, FAST_PRECISION, Precision
 from .cplx import from_complex, to_complex
 from .kernels import kernel_supported
@@ -30,6 +31,9 @@ __all__ = [
     "refresh",
     "roundtrip",
     "roundtrip_hopped",
+    "sdft_hopped",
+    "sdft_interleaved",
+    "isdft_interleaved",
     "kernel_supported",
     "to_complex",
     "from_complex",

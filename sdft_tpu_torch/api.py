@@ -23,8 +23,8 @@ import torch
 from .cplx import from_complex, pack, unpack
 from .kernels.spectra import (forward_block, forward_block_power,
                               kernel_supported)
+from .ops import lti
 from .ops.analysis import refresh_state, sdft_block
-from .ops.lti import roundtrip_hopped_chain
 from .ops.synthesis import isdft_block
 from .plan import Plan
 from .state import State, batch_state, stack_states
@@ -145,21 +145,23 @@ def refresh(plan: Plan, state: State) -> State:
 
 
 def roundtrip(plan: Plan, state: State, samples, transform=None):
-    """sdft -> transform -> isdft round trip of one block.
+    """sdft -> [transform ->] isdft round trip of one block.
 
-    ``transform`` maps the complex (M, m) [(C, M, m)] spectra to the same
-    shape.  The form without a transform (the collapsed LTI round trip of
-    the JAX package) is not ported yet.
+    Without a transform the chain is linear time-invariant and runs in its
+    collapsed form (``ops.lti.roundtrip_block_lti``): three GEMMs and a
+    prefix over tiles, no spectra in memory.  The state it returns is the
+    one ``sdft`` returns, so the two forms interleave on one stream.
+
+    With a transform, the complex (M, m) [(C, M, m)] spectra are
+    materialized, mapped by ``transform`` to the same shape, and
+    synthesized.
 
     Returns (new_state, y) with y (M,) or (C, M).
     """
-    if transform is None:
-        raise NotImplementedError(
-            "roundtrip without a transform (the collapsed-LTI form, "
-            "sdft_tpu/ops/lti.py:266) is not ported yet (ROADMAP queue 1, "
-            "item 5); pass a transform")
     _reject_extended(plan)
     x = _samples(state, samples)
+    if transform is None:
+        return lti.roundtrip_block_lti(plan, state, x)
     st, d = _per_channel(lambda s, xc: sdft_block(plan, s, xc), state, x)
     z = transform(unpack(d))
     if tuple(z.shape) != tuple(d.shape[:-1]):
@@ -170,14 +172,57 @@ def roundtrip(plan: Plan, state: State, samples, transform=None):
 
 
 def roundtrip_hopped(plan: Plan, state: State, blocks, hop: int,
-                     refresh_every: int | None = 1):
-    """Chained driver-protocol segment: (new_state, hop_dfts, ys) with
-    hop_dfts packed (nb, B//hop, m, 2) [(nb, C, B//hop, m, 2)] and ys
-    (nb, B) [(nb, C, B)].  hop = 1 runs one K2 launch per block (per
-    channel); hop > 1 is not ported yet."""
+                     refresh_every: int | None = 1, k_tile: int | None = None):
+    """Chained driver-protocol segment (test/test.c:69-83): the first
+    spectrum of every hop and the synthesized samples of a stack of blocks.
+
+    Args:
+      plan: the plan.
+      state: carry (unbatched for (nb, B) blocks, batched for (nb, C, B)).
+      blocks: (nb, B) or (nb, C, B), B a multiple of ``hop``.
+      hop: hop size in samples.
+      refresh_every: accumulator refresh cadence in blocks (None: off).
+      k_tile: for hop < 8, the multi-hop tile target (default 8: tiles of
+        ceil(k_tile/hop) hops); ignored for hop >= 8.
+
+    Returns (new_state, hop_dfts, ys): hop_dfts packed (nb, B//hop, m, 2)
+    [(nb, C, B//hop, m, 2)], ys (nb, B) [(nb, C, B)].  hop = 1 with a
+    plan the kernels take runs one K2 launch per block and channel.
+    """
     _reject_extended(plan)
     xs = _samples(state, blocks, ndims=(2, 3))
-    if xs.shape[-1] % hop:
-        raise ValueError(f"block length {xs.shape[-1]} must be a "
-                         f"multiple of hop {hop}")
-    return roundtrip_hopped_chain(plan, state, xs, hop, refresh_every)
+    return lti.roundtrip_hopped_chain(plan, state, xs, hop, k_tile, refresh_every)
+
+
+def sdft_hopped(plan: Plan, state: State, samples, hop: int):
+    """Forward analysis emitting one spectrum per ``hop`` samples (at
+    samples 0, hop, 2*hop, ... of the block); the carry advances over every
+    sample, so it interleaves with ``sdft`` and ``roundtrip`` on a stream.
+
+    Returns (new_state, dfts) with dfts packed (ceil(M/hop), m, 2) or
+    (C, ceil(M/hop), m, 2).
+    """
+    _reject_extended(plan)
+    return lti.sdft_hopped(plan, state, _samples(state, samples), hop)
+
+
+def sdft_interleaved(plan: Plan, state: State, frames, layout: str = "packed",
+                     spectra_dtype: str | None = None):
+    """Forward analysis of interleaved multi-channel audio: ``frames`` is
+    (M, C), one C-channel frame per time step (the layout of the
+    reference's ``sdft_sdft_nd``, c/src/sdft/sdft.h:615-633).  Spectra come
+    back channel-major, (C, M, m, 2), as from ``sdft`` on the (C, M) batch."""
+    x = torch.as_tensor(frames, device=state.offset.device)
+    if x.ndim != 2:
+        raise ValueError(f"frames must be (M, C) interleaved, got {tuple(x.shape)}")
+    return sdft(plan, state, x.T, layout=layout, spectra_dtype=spectra_dtype)
+
+
+def isdft_interleaved(plan: Plan, dfts) -> torch.Tensor:
+    """Inverse synthesis returning interleaved (M, C) frames (the layout of
+    ``sdft_isdft_nd``, c/src/sdft/sdft.h:676-694)."""
+    y = isdft(plan, dfts)
+    if y.ndim != 2:
+        raise ValueError("isdft_interleaved needs channel-batched spectra "
+                         "(C, M, m, 2)")
+    return y.T

@@ -9,9 +9,10 @@ the CPU and on the GPU, so ``resolve()`` is the identity here.
   * "highest": true FP32 products (TF32 off) — the class that meets the
     reference's 1e-7 DFT gate;
   * "high": TF32 tensor-core products (about 10 mantissa bits);
-  * "split4": accepted for checkpoint and plan compatibility and treated as
-    "highest" (the collapsed round trip that gives it meaning is not
-    ported yet).
+  * "split4": accepted for checkpoint and plan compatibility and run as
+    "highest".  The JAX package's split4 is a bf16 hi/lo split for the
+    TPU's matrix unit; TF32, the card's cheaper class, misses split4's
+    own 5e-4 gate on the flagship round trip (ROADMAP queue 1, item 5).
 
 ``fp32_matmul`` sets ``torch.backends.cuda.matmul.allow_tf32`` for the
 duration of the port's matmuls and restores the caller's value.

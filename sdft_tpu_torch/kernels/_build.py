@@ -1,16 +1,17 @@
 """Build and load the CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` into one shared
-library with a plain C interface and loaded through ``ctypes``.  The build
-runs at first use and again whenever a source or the flags change: the
-library's file name carries a hash of both.  A failed build raises with
-nvcc's output; nothing falls back.  The build goes to ``_build/`` beside
-this file, together with a log of ptxas's register and shared-memory
-report for each kernel.
+The sources under ``csrc/`` are compiled by ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded through ``ctypes``.  The build runs at first use
+and again whenever a source or the flags change: the library's file name
+carries a hash of both.  A failed build raises with nvcc's output; nothing
+falls back.  The build goes to ``_build/`` beside this file, together with
+a log of ptxas's register and shared-memory report for each kernel.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -22,22 +23,25 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("spectra.cu", "scan.cu")
+SOURCES = ("spectra.cu", "scan.cu", "kparts.cu")
 HEADERS = ("common.cuh",)
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C signatures of the entry points (csrc/spectra.cu, csrc/scan.cu)
+#: C signatures of the entry points (csrc/spectra.cu, scan.cu, kparts.cu)
 SIGNATURES = {
     "sdft_spectra_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _F, _F, _F, _I, _I, _I, _I, _P),
     "sdft_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _I, _F, _I, _I, _P),
+    "sdft_kparts_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _F, _I, _P),
     "sdft_spectra_occupancy": (_I, _I),
     "sdft_scan_occupancy": (_I, _I),
+    "sdft_kparts_occupancy": (_I, _I),
 }
 
 
@@ -63,6 +67,14 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libsdft_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> pathlib.Path:
     """Compile the library unless it is already built; return its path."""
     out = library_path()
@@ -70,19 +82,16 @@ def build() -> pathlib.Path:
         return out
     compiler = nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [compiler, *FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        cmds = [[compiler, *FLAGS, "-c", str(CSRC / s), "-o", o]
+                for s, o in zip(SOURCES, objs)]
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        lib = os.path.join(tmp, out.name)
+        logs.append(_run([compiler, *ARCH, "-shared", "-o", lib, *objs]))
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, out)  # atomic: concurrent builders never see a partial file
     return out
 
 

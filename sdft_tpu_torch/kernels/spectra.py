@@ -120,25 +120,26 @@ def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int,
 
 
 def _cumsum_complex(z: torch.Tensor, dim: int) -> torch.Tensor:
+    """Cumulative sum of a complex tensor along a non-negative ``dim``."""
     return torch.view_as_complex(torch.cumsum(torch.view_as_real(z), dim=dim))
 
 
 def _prefix_tiles(z: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the rows of (nt, m) complex, in two
+    """Inclusive prefix sum over the rows of (..., nt, m) complex, in two
     levels: within groups of PREFIX_GROUP rows, then over the group totals.
     (A one-level scan along rows runs one thread per column.)"""
-    nt, m = z.shape
+    *lead, nt, m = z.shape
     g = PREFIX_GROUP
     if nt <= g:
-        return _cumsum_complex(z, 0)
+        return _cumsum_complex(z, z.ndim - 2)
     ng = -(-nt // g)
     r = torch.view_as_real(z)
     if ng * g != nt:
         r = torch.nn.functional.pad(r, (0, 0, 0, 0, 0, ng * g - nt))
-    inner = torch.cumsum(r.reshape(ng, g, m, 2), dim=1)
-    totals = torch.cumsum(inner[:, -1], dim=0)
-    inner[1:] += totals[:-1, None]
-    return torch.view_as_complex(inner.reshape(ng * g, m, 2)[:nt])
+    inner = torch.cumsum(r.reshape(*lead, ng, g, m, 2), dim=-3)
+    totals = torch.cumsum(inner[..., -1, :, :], dim=-3)
+    inner[..., 1:, :, :, :] += totals[..., :-1, None, :, :]
+    return torch.view_as_complex(inner.reshape(*lead, ng * g, m, 2)[..., :nt, :, :])
 
 
 class Prologue(NamedTuple):

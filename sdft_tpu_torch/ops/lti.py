@@ -1,31 +1,422 @@
-"""The hop=1 driver chain and the fused accumulator refresh (counterpart of
-the hop=1 route of ``sdft_tpu.ops.lti``).
+"""The collapsed (LTI) round trip, the driver protocol at every hop, the
+hopped analysis and the fused accumulator refresh (counterpart of
+``sdft_tpu.ops.lti``).
 
-At hop = 1 every sample of the reference driver protocol
-(test/test.c:69-83) emits a whole spectrum, and the synthesized samples
-come from the same spectra.  ``roundtrip_hopped_chain`` runs one K2 launch
-per block (``kernels.scan.forward_and_y``, the port of
-``_chain_hop1_pallas_jit``, ops/lti.py:947-981), then refreshes the
-accumulator at the requested cadence.  Plans the kernels do not take run
-the reference forms ``sdft_block`` + ``isdft_block`` per block instead.
-The collapsed-LTI round trip and the hop > 1 driver bodies are not ported
-yet (ROADMAP queue 1, items 5 and 6).
+Without a spectral transform between them, analysis and synthesis form a
+linear time-invariant map of the comb deltas (c/src/sdft/sdft.h:562-657).
+Cutting a block into nt tiles of K samples, with row0_t = T_i^(offset +
+t*K) and fine[k, i] = T_i^k (exact integer phases), the round trip is
+
+    totals_t = delta_t @ fine                      (one GEMM over all tiles)
+    c0_t     = (acc + sum_{t' < t} row0_t' totals_t') * conj(row0_t)
+    y_t      = delta_t @ GLT + c0_re_t @ P^T + c0_im_t @ Q^T
+
+with the plan constants P, Q (the adjoint of demodulation, Hermitian
+guards, window convolution and synthesis) and GLT = (G o L)^T, L the
+causal mask of the prefix sum inside a tile (``_lti_constants``).  The
+per-sample scan disappears: three GEMMs on cuBLAS (in the plan's float32
+class, ``fp32_matmul``) plus O(nt*m) elementwise work.  Channels fold into
+the GEMM rows.
+
+The same carry gives each hop's spectrum when tiles are one hop long: the
+accumulator right after a tile's first sample, demodulated, is
+(c0_t + d0_t) * conj(T_i).  Hops shorter than 8 samples ride tiles of
+``sub`` hops with a stepped partial-totals GEMM (``_stepped_consts_device``).
+``roundtrip_hopped_chain`` runs the driver protocol (test/test.c:69-83)
+block by block in a Python loop; at hop = 1 plans that the kernels take go
+through K2 (``kernels.scan.forward_and_y``) instead.
+
+The scan-free batched driver segment of the JAX package
+(``_driver_segment_nd``, ``segment=True``) is not reachable from the API
+and is not ported.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from ..config import fp32_matmul
+from ..cplx import pack
+from ..kernels.spectra import _prefix_tiles, kernel_supported
 from ..plan import Plan
 from ..state import State, batch_state, stack_states
-from .analysis import sdft_block
-from .synthesis import isdft_block
+from ..windows import WINDOW_HALO, WINDOW_TAPS
+from .convolve import window_convolve
 from .twiddle import mulmod, phasors, roi_mask
 
+#: tile length of the collapsed round trip for long blocks: the fastest
+#: of the k_tile sweep on an H100 at m = 4096 (PERF.md section 6, PR 2)
+K_TILE = 1024
+#: bound on K*m: the fine and PQ tables hold 16*K*m bytes in float32
+TABLE_ELEMS = 1 << 22
+#: driver tiles of hops shorter than this many samples span several hops
+DRIVER_TILE_TARGET = 8
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << max(0, n.bit_length() - 1)
+
+
+def default_k_tile(M: int, m: int) -> int:
+    """Tile length for a block of M samples at m bins: K_TILE, but at most
+    M/16 (at least 16 tiles) and TABLE_ELEMS/m (the plan tables), as a
+    power of two and never below 16."""
+    return max(16, min(K_TILE, _pow2_floor(M // 16), _pow2_floor(TABLE_ELEMS // m)))
+
+
+def driver_sub_factor(hop: int, tile_target: int = DRIVER_TILE_TARGET) -> int:
+    """Inner-hop multiplicity for short hops: the smallest ``sub`` with
+    hop*sub >= tile_target (1 for hop >= tile_target)."""
+    return max(1, -(-tile_target // hop))
+
+
+# -- plan constants (host numpy, float64) ---------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _fine_host(plan: Plan, K: int):
+    """fine[k, j] = T_j^k for k in [0, K), exact integer phases (float64)."""
+    m = plan.dftsize
+    ang = (-np.pi / m) * ((np.arange(K)[:, None] * np.arange(m)[None, :])
+                          % (2 * m))
+    return np.cos(ang), np.sin(ang)
+
+
+@functools.lru_cache(maxsize=32)
+def _lti_constants(plan: Plan, K: int):
+    """Host-side plan constants of the collapsed round trip:
+    (fine_re, fine_im, P, Q, GLT) with shapes (K, m) x 4 and (K, K); the
+    fine tables are zero outside the ROI and GLT = (G o L)^T is ready for
+    ``delta_tile @ GLT``."""
+    m = plan.dftsize
+    n2 = 2 * m
+    halo = WINDOW_HALO[plan.window]
+    c = WINDOW_TAPS[plan.window]
+    i = np.arange(m)
+    k = np.arange(K)
+
+    # fine[k, j] = T_j^k and dmf[k, j] = conj(T_j^(k+1)), exact integer phases
+    ang = (-np.pi / m) * ((k[:, None] * i[None, :]) % n2)
+    fine = np.cos(ang) + 1j * np.sin(ang)
+    angd = (np.pi / m) * (((k[:, None] + 1) * i[None, :]) % n2)
+    dmf = np.cos(angd) + 1j * np.sin(angd)
+
+    # synthesis row (twiddle.synthesis_twiddles in float64)
+    if plan.latency == 1.0:
+        s_re = np.where(i % 2 == 0, 1.0, -1.0)
+        s_im = np.zeros(m)
+    else:
+        w = 2.0 / (1.0 - np.cos(np.pi * plan.latency))
+        angs = -np.pi * plan.latency * i
+        s_re = w * np.cos(angs)
+        s_im = w * np.sin(angs)
+    if plan.roi is not None:
+        first, last = plan.roi
+        mask = ((i >= first) & (i < last)).astype(np.float64)
+        s_re = s_re * mask
+        s_im = s_im * mask
+
+    # adjoint of synthesis and convolution: y = sw*(dft_re@s_re - dft_im@s_im),
+    # dft = wgt * conv(aux); alpha/beta are the coefficients of aux_re/aux_im
+    # on the guard-extended bin axis [-halo, m+halo)
+    scale = plan.analysis_weight * plan.synthesis_weight
+    aR = np.zeros(m + 2 * halo)
+    aI = np.zeros(m + 2 * halo)
+    for g in range(-halo, halo + 1):
+        aR[halo + g: halo + g + m] += scale * c[abs(g)] * s_re
+        aI[halo + g: halo + g + m] += -scale * c[abs(g)] * s_im
+    # fold the Hermitian guards (c/src/sdft/sdft.h:589-595) onto their
+    # mirror bins, imaginary part negated
+    for g in range(1, halo + 1):
+        aR[halo + g] += aR[halo - g]
+        aI[halo + g] -= aI[halo - g]
+        aR[halo + m - 1 - g] += aR[halo + m - 1 + g]
+        aI[halo + m - 1 - g] -= aI[halo + m - 1 + g]
+    alpha = aR[halo: halo + m]
+    beta = aI[halo: halo + m]
+
+    # adjoint of the demodulation aux = u * dmf
+    P = alpha * dmf.real + beta * dmf.imag
+    Q = beta * dmf.real - alpha * dmf.imag
+
+    # bins outside the ROI are never accumulated (c/src/sdft/sdft.h:570)
+    if plan.roi is not None:
+        fine = fine * mask
+    G = P @ fine.real.T + Q @ fine.imag.T
+    GLT = (G * (k[None, :] <= k[:, None])).T
+    return fine.real, fine.imag, P, Q, GLT
+
+
+# -- device caches ---------------------------------------------------------------
+
+def _interleave(re, im) -> np.ndarray:
+    """(..., n) re and im -> (..., 2n) with (re, im) pairs adjacent, so a
+    GEMM into it yields a complex tensor without a copy."""
+    return np.stack([re, im], axis=-1).reshape(*re.shape[:-1], -1)
+
+
+def _to_device(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _hop_consts_device(plan: Plan, K: int, fd: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """The fine table of K-sample tiles on ``device``: (K, 2m) with
+    T_i^k on ROI bins (zero elsewhere), (re, im) interleaved."""
+    fre, fim = _fine_host(plan, K)
+    if plan.roi is not None:
+        mask = roi_mask(plan, "cpu").numpy()
+        fre, fim = fre * mask, fim * mask
+    return _to_device(_interleave(fre, fim), fd, device)
+
+
+@functools.lru_cache(maxsize=32)
+def _lti_consts_device(plan: Plan, K: int, fd: torch.dtype,
+                       device: torch.device):
+    """(fine, GLT, PQ) of the collapsed round trip on ``device``: fine as
+    ``_hop_consts_device``; GLT (K, K); PQ (2m, K) with rows P[:, j] and
+    Q[:, j] interleaved, so that view_as_real(c0) @ PQ is
+    c0_re @ P^T + c0_im @ Q^T in one GEMM."""
+    _, _, P, Q, GLT = _lti_constants(plan, K)
+    PQ = np.stack([P.T, Q.T], axis=1).reshape(2 * plan.dftsize, K)
+    return (_hop_consts_device(plan, K, fd, device), _to_device(GLT, fd, device),
+            _to_device(PQ, fd, device))
+
+
+@functools.lru_cache(maxsize=32)
+def _stepped_consts_device(plan: Plan, hop: int, sub: int, fd: torch.dtype,
+                           device: torch.device):
+    """Tables for hops shorter than DRIVER_TILE_TARGET: tiles of
+    K = hop*sub samples emit ``sub`` hop spectra each, so the GEMMs keep a
+    usable depth at 1-sample hops.
+
+    Returns (sf, dr):
+
+      * sf (K, sub*2m): the inclusive partial fine tables
+        sf[k, j, i] = T_i^k * [k <= j*hop] (ROI bins only), (re, im)
+        interleaved — one GEMM dt @ sf gives every inner hop's partial
+        totals, the hop-start delta included;
+      * dr (sub, m) complex: the inner demodulation rows T_i^-(j*hop + 1),
+        from exact integer exponents mod 2m.
+    """
+    m = plan.dftsize
+    n2 = 2 * m
+    K = hop * sub
+    fre, fim = _fine_host(plan, K)
+    if plan.roi is not None:
+        mask = roi_mask(plan, "cpu").numpy()
+        fre, fim = fre * mask, fim * mask
+    causal = (np.arange(K)[:, None] <= np.arange(sub)[None, :] * hop)[..., None]
+    sf = _interleave(fre[:, None, :] * causal, fim[:, None, :] * causal)
+    e = (-(np.arange(sub, dtype=np.int64) * hop + 1)) % n2
+    r = (e[:, None] * np.arange(m, dtype=np.int64)[None, :]) % n2
+    ang = (-np.pi / m) * r
+    cd = torch.complex128 if fd == torch.float64 else torch.complex64
+    return (_to_device(sf.reshape(K, -1), fd, device),
+            _to_device(np.cos(ang) + 1j * np.sin(ang), cd, device))
+
+
+def _fused_driver_consts(plan: Plan, hop: int, sub: int, device):
+    """Device constants of the fused driver at tiles of K = hop*sub:
+    (fine, GLT, PQ), plus the stepped tables when sub > 1.  A "split4"
+    plan takes the exact float32 tables (config: split4 runs as FP32)."""
+    fd = plan.precision.fd_dtype
+    base = _lti_consts_device(plan, hop * sub, fd, device)
+    if sub == 1:
+        return base, None
+    return base, _stepped_consts_device(plan, hop, sub, fd, device)
+
+
+# -- the collapsed forms -----------------------------------------------------------
+
+def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int):
+    """row0[c, t, i] = T_i^((offset_c + t*K) mod 2m) for t in [0, nt):
+    (C, nt, m) complex in the plan's FD precision.
+
+    The exponents are periodic in t with period p = 2m / gcd(K, 2m), so
+    only min(nt, p) rows of exact integer phases are evaluated and the rest
+    repeat them (same exponent, same float)."""
+    m = plan.dftsize
+    n2 = 2 * m
+    dev = offset.device
+    q = min(nt, n2 // math.gcd(K, n2))
+    e0 = torch.remainder(offset.to(torch.int64)[:, None]
+                         + torch.arange(q, device=dev)[None, :] * K, n2)
+    rows = phasors(m, mulmod(e0[..., None], torch.arange(m, device=dev), n2),
+                   -1.0, plan.precision.fd_dtype)
+    if nt > q:
+        rows = rows[:, torch.arange(nt, device=dev) % q]
+    return rows
+
+
+def _carry(plan: Plan, state: State, samples: torch.Tensor, fine: torch.Tensor):
+    """The front shared by every collapsed form, for a batched state and
+    (C, M) samples: the comb deltas in tiles of K (the rows of ``fine``),
+    the per-tile carry in the demodulated frame and the state after the
+    block.
+
+    Returns (dt (C, nt, K) FD real, c0 (C, nt, m) complex, new_state)."""
+    m = plan.dftsize
+    K = fine.shape[0]
+    td, fd = plan.precision.td_dtype, plan.precision.fd_dtype
+    C, M = samples.shape
+    nt = -(-M // K)
+    x = samples.to(td)
+    line = torch.cat([state.delayline.to(td), x], dim=-1)
+    delta = (x - line[:, :M]).to(fd)
+    if nt * K != M:  # zero deltas do not perturb the carry
+        delta = torch.nn.functional.pad(delta, (0, nt * K - M))
+    dt = delta.view(C, nt, K)
+    with fp32_matmul(plan.precision):
+        totals = torch.view_as_complex((dt @ fine).view(C, nt, m, 2))
+    row0 = _phase_rows(plan, state.offset, nt, K)
+    rt = row0 * totals
+    acc = torch.view_as_complex(state.accumulator.to(fd).contiguous())
+    # exclusive prefix with the carried accumulator in front
+    pre = _prefix_tiles(torch.cat([acc[:, None], rt[:, :-1]], dim=1))
+    new_state = State(
+        offset=torch.remainder(state.offset + M, 2 * m).to(state.offset.dtype),
+        delayline=line[:, M:].contiguous(),
+        accumulator=torch.view_as_real(pre[:, -1] + rt[:, -1]).to(
+            state.accumulator.dtype),
+    )
+    return dt, pre * row0.conj(), new_state
+
+
+def _synthesize(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,
+                M: int) -> torch.Tensor:
+    """y = delta @ GLT + c0_re @ P^T + c0_im @ Q^T: (C, M) in TD precision."""
+    C, nt, K = dt.shape
+    with fp32_matmul(plan.precision):
+        y = torch.addmm(dt.reshape(C * nt, K) @ GLT,
+                        torch.view_as_real(c0).reshape(C * nt, -1), PQ)
+    return y.reshape(C, nt * K)[:, :M].to(plan.precision.td_dtype)
+
+
+def _hop_spectra(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, stepped,
+                 hop: int, M: int) -> torch.Tensor:
+    """Packed spectra at samples 0, hop, 2*hop, ... of the block:
+    (C, ceil(M/hop), m, 2).  With tiles of one hop (``stepped`` None) the
+    spectrum of tile t is (c0_t + d0_t) * conj(T_i); with tiles of sub hops
+    it is (c0_t + ptotals_j) * T_i^-(j*hop+1) for inner hop j."""
+    m = plan.dftsize
+    fd = plan.precision.fd_dtype
+    C, nt, K = dt.shape
+    dev = dt.device
+    if stepped is None:
+        d0 = dt[:, :, :1]
+        if plan.roi is not None:
+            d0 = d0 * roi_mask(plan, dev, fd)
+        conj_base = phasors(m, torch.arange(m, device=dev), 1.0, fd)
+        aux = (c0 + d0) * conj_base
+    else:
+        sf, dr = stepped
+        sub = dr.shape[0]
+        with fp32_matmul(plan.precision):
+            pt = torch.view_as_complex((dt @ sf).view(C, nt, sub, m, 2))
+        aux = ((c0[:, :, None, :] + pt) * dr).reshape(C, nt * sub, m)
+        aux = aux[:, :-(-M // hop)]
+    out = window_convolve(plan, aux)
+    if plan.roi is not None:
+        out = out * roi_mask(plan, dev, fd)
+    return pack(out)
+
+
+def _batched(fn, state: State, samples: torch.Tensor):
+    """Run ``fn(batched_state, (C, M) samples) -> (state, *outs)`` on a
+    batched or an unbatched state; outputs lose the channel axis again
+    for (M,) samples."""
+    if samples.ndim == 2:
+        return fn(state, samples)
+    st, *outs = fn(State(*(a[None] for a in state)), samples[None])
+    return (batch_state(st, 0), *(o[0] for o in outs))
+
+
+def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
+                        k_tile: int | None = None):
+    """Fused forward + inverse round trip of one block (collapsed form).
+
+    Args:
+      plan: the plan.
+      state: carry (unbatched for (M,) samples, batched for (C, M)).
+      samples: (M,) or (C, M), any M (zero-padded to whole tiles inside).
+      k_tile: samples per tile (default ``default_k_tile(M, m)``); the
+        output does not depend on it beyond rounding.
+
+    Returns (new_state, y) with y (M,) / (C, M) in TD precision, equal to
+    ``isdft_block(sdft_block(...))`` up to rounding, with the same state.
+    """
+    M = samples.shape[-1]
+    K = k_tile or default_k_tile(M, plan.dftsize)
+    fine, GLT, PQ = _lti_consts_device(plan, K, plan.precision.fd_dtype,
+                                       samples.device)
+
+    def run(st, x):
+        dt, c0, st = _carry(plan, st, x, fine)
+        return st, _synthesize(plan, dt, c0, GLT, PQ, M)
+
+    return _batched(run, state, samples)
+
+
+def _fused_driver_nd(plan: Plan, state: State, samples: torch.Tensor, consts,
+                     hop: int, refresh: bool):
+    """One block of the driver protocol for a batched state in one pass:
+    the hop spectra and the synthesized samples share one comb stage, one
+    totals GEMM and one prefix; ``refresh`` rebuilds the accumulator from
+    the delayline before returning.  ``consts`` come from
+    ``_fused_driver_consts``, whose tiles span one or several hops.
+
+    Returns (state, hop_dfts (C, ceil(M/hop), m, 2), y (C, M))."""
+    (fine, GLT, PQ), stepped = consts
+    M = samples.shape[-1]
+    dt, c0, st = _carry(plan, state, samples, fine)
+    y = _synthesize(plan, dt, c0, GLT, PQ, M)
+    hd = _hop_spectra(plan, dt, c0, stepped, hop, M)
+    if refresh:
+        st = refresh_state_any(plan, st)
+    return st, hd, y
+
+
+def roundtrip_hopped_block(plan: Plan, state: State, samples: torch.Tensor,
+                           hop: int, refresh: bool = False):
+    """One block of the driver protocol: (state, hop_dfts, y).  Hops
+    shorter than DRIVER_TILE_TARGET take multi-hop tiles."""
+    sub = driver_sub_factor(hop)
+    consts = _fused_driver_consts(plan, hop, sub, samples.device)
+    return _batched(
+        lambda st, x: _fused_driver_nd(plan, st, x, consts, hop, refresh),
+        state, samples)
+
+
+def sdft_hopped(plan: Plan, state: State, samples: torch.Tensor, hop: int):
+    """Forward analysis emitting one spectrum per hop (at samples 0, hop,
+    2*hop, ... of the block; the reference driver keeps each hop's first
+    spectrum, test/test.c:82).  The carry advances over every sample.
+
+    Returns (new_state, dfts) with dfts packed (ceil(M/hop), m, 2) or
+    (C, ceil(M/hop), m, 2), equal up to rounding to the full spectra
+    sliced ``[..., ::hop, :, :]``."""
+    if hop < 1:
+        raise ValueError(f"hop must be >= 1, got {hop}")
+    M = samples.shape[-1]
+    fd = plan.precision.fd_dtype
+    sub = driver_sub_factor(hop)
+    fine = _hop_consts_device(plan, hop * sub, fd, samples.device)
+    stepped = (_stepped_consts_device(plan, hop, sub, fd, samples.device)
+               if sub > 1 else None)
+
+    def run(st, x):
+        dt, c0, st = _carry(plan, st, x, fine)
+        return st, _hop_spectra(plan, dt, c0, stepped, hop, M)
+
+    return _batched(run, state, samples)
+
+
+# -- the exact refresh ------------------------------------------------------------
 
 @functools.lru_cache(maxsize=16)
 def _refresh_tables_device(plan: Plan, fd: torch.dtype, device: torch.device,
@@ -55,7 +446,6 @@ def _exact_phase_row(plan: Plan, exponents: torch.Tensor, fd: torch.dtype):
 def _refresh_fused(plan: Plan, state: State, fd: torch.dtype) -> State:
     """The exact accumulator refresh of a batched state in split-table form:
     acc[i] = T_i^offset * sum_j delayline[j] * T_i^j, with j = a*S + b."""
-    m = plan.dftsize
     S = 128
     dev = state.delayline.device
     fS_re, fS_im, c2_re, c2_im = _refresh_tables_device(plan, fd, dev, S)
@@ -96,44 +486,62 @@ def _chain_refresh(plan: Plan, refresh_every: int, st: State, since: int):
     return st, since
 
 
-def _hop1_block(plan: Plan, st: State, x: torch.Tensor, use_kernel: bool):
-    """One channel's block at hop 1: (state, packed spectra, samples)."""
-    if use_kernel:
-        from ..kernels.scan import forward_and_y
+# -- the driver protocol over stacked blocks -------------------------------------
 
+def _hop1_kernel_block(plan: Plan, st: State, x: torch.Tensor):
+    """hop = 1 through K2, one launch per channel: (state, spectra, y)."""
+    from ..kernels.scan import forward_and_y
+
+    if x.ndim == 1:
         return forward_and_y(plan, st, x)
-    st, d = sdft_block(plan, st, x)
-    return st, d, isdft_block(plan, d)
+    outs = [forward_and_y(plan, batch_state(st, c), xc) for c, xc in enumerate(x)]
+    return (stack_states([o[0] for o in outs]),
+            *(torch.stack([o[j] for o in outs]) for j in (1, 2)))
 
 
 def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
-                           hop: int, refresh_every: int | None = 1):
-    """The driver protocol over stacked blocks: (state, hop_dfts, ys) with
-    hop_dfts packed (nb, B//hop, m, 2) [(nb, C, B//hop, m, 2)] and ys
-    (nb, B) [(nb, C, B)].  Only hop = 1 is ported."""
-    from ..kernels.spectra import kernel_supported
+                           hop: int, k_tile: int | None = None,
+                           refresh_every: int | None = 1):
+    """The driver protocol over stacked blocks, one block after another.
 
-    if hop != 1:
-        raise NotImplementedError(
-            f"roundtrip_hopped with hop={hop} is not ported yet; only hop=1 "
-            "is (ROADMAP queue 1, item 6: the driver protocol at hop > 1)")
+    Args:
+      plan: the plan.
+      state: carry (unbatched for xs (nb, B), batched for (nb, C, B)).
+      xs: stacked blocks, B a multiple of ``hop``.
+      hop: hop size in samples.
+      k_tile: hops shorter than DRIVER_TILE_TARGET only — the multi-hop
+        tile target (default DRIVER_TILE_TARGET): tiles span
+        ceil(k_tile/hop) hops.  Ignored for longer hops, whose tiles are
+        the hop itself.
+      refresh_every: rebuild the accumulator exactly from the delayline
+        every N blocks (None: never).
+
+    Returns (new_state, hop_dfts, ys): hop_dfts packed (nb, B//hop, m, 2)
+    [(nb, C, B//hop, m, 2)], ys (nb, B) [(nb, C, B)].  At hop = 1, plans
+    the kernels take run one K2 launch per block and channel.
+    """
     if refresh_every is not None and refresh_every < 1:
         raise ValueError(f"refresh_every must be None or >= 1, got {refresh_every}")
-    use_kernel = kernel_supported(plan, int(xs.shape[-1]))
+    if hop < 1 or xs.shape[-1] % hop:
+        raise ValueError(f"block length {xs.shape[-1]} must be a multiple "
+                         f"of hop {hop} >= 1")
+    if hop == 1 and kernel_supported(plan, int(xs.shape[-1])):
+        def block(st, x):
+            st, hd, y = _hop1_kernel_block(plan, st, x)
+            return (refresh_state_any(plan, st) if refresh_every == 1 else st), hd, y
+    else:
+        sub = (1 if hop >= DRIVER_TILE_TARGET
+               else driver_sub_factor(hop, k_tile or DRIVER_TILE_TARGET))
+        consts = _fused_driver_consts(plan, hop, sub, xs.device)
+
+        def block(st, x):
+            return _batched(lambda s, xx: _fused_driver_nd(
+                plan, s, xx, consts, hop, refresh_every == 1), st, x)
     since = 0
     hds, ys = [], []
     for x in xs:
-        if x.ndim == 1:
-            state, hd, y = _hop1_block(plan, state, x, use_kernel)
-        else:
-            outs = [_hop1_block(plan, batch_state(state, c), xc, use_kernel)
-                    for c, xc in enumerate(x)]
-            state = stack_states([o[0] for o in outs])
-            hd = torch.stack([o[1] for o in outs])
-            y = torch.stack([o[2] for o in outs])
-        if refresh_every == 1:
-            state = refresh_state_any(plan, state)
-        elif refresh_every is not None:
+        state, hd, y = block(state, x)
+        if refresh_every not in (None, 1):
             state, since = _chain_refresh(plan, refresh_every, state, since)
         hds.append(hd)
         ys.append(y)
