@@ -8,7 +8,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. device    require CUDA; print the card's name and power limit, the
                torch version and both TF32 flags;
   2. build     build the kernels from sdft_tpu_torch/kernels/csrc;
-  3. main path, in two parts, each with the launch counts set to 0 just
+  3. main path, in three parts, each with the launch counts set to 0 just
                before it and read just after:
      a. spectra ``sdft``/``sdft_power`` at the flagship size (m = 4096,
                Hann, float32, two chained 16384-sample blocks) and at
@@ -24,7 +24,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
                in float64 and with --fd32; ``profiling.kernel_parts``, the
                five probes of K1's parts at m = 4096, K = 128, PAD = 64 and
                512 tiles.  The probe kernel must have been launched, for
-               both TPU functions it ports.
+               both TPU functions it ports;
+     c. stream ``Streamer.run`` over 16 blocks of 65536 at m = 4096 (the
+               collapsed path) against a chain of ``roundtrip``, and
+               checkpoint after block 8 + ``restore``; ``run`` over 4
+               blocks of 8192 with a mask on packed spectra (K1) beside
+               the same mask fused; ``run_hopped`` at m = 1000, hop = 100
+               (blocks of 16000, chain 8) and hop = 1 (blocks of 8000, K2)
+               against ``roundtrip_hopped``; the float32x2 tier at m =
+               4096 on two chained blocks of 8192; ``SDFT`` on the card
+               against the CPU; ``STFT`` against numpy framing and
+               ``np.fft.rfft``, and its WOLA interior.  K1 and K2 must
+               have been launched.
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
                inputs, at the main path's shapes;
@@ -34,8 +45,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                collapsed round trip for k_tile in {128, 256, 512, 1024} at
                m = 4096 on 65536-sample blocks and on 8 channels of 32768,
                FP32 against TF32; the hop = 100 driver on 4000- and
-               16000-sample blocks with its device idle share; and wall
-               times (CUDA events) of the public calls.
+               16000-sample blocks with its device idle share; wall
+               times (CUDA events) of the public calls; ``Streamer.run``
+               against a sequential loop, on the collapsed round trip
+               (host-bound) and on 8 x 16384 through K1 with a packed
+               transform (device-bound), and ``run_hopped`` against its
+               per-block loop (host clock, in turns, median and range);
+               the float32x2 tier's two legs beside float64 ``ops``, with
+               their peak device memory.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Inputs are made from a fixed seed.
@@ -69,9 +86,13 @@ def require_cuda() -> str:
     return smi.splitlines()[0]
 
 
+def host_signal(n: int, seed: int, scale: float = 1.0) -> np.ndarray:
+    x = (np.random.default_rng(seed).standard_normal(n) * scale).clip(-1, 1)
+    return x.astype(np.float32)
+
+
 def signal(n: int, seed: int, device) -> torch.Tensor:
-    x = np.random.default_rng(seed).standard_normal(n).clip(-1, 1)
-    return torch.as_tensor(x.astype(np.float32), device=device)
+    return torch.as_tensor(host_signal(n, seed), device=device)
 
 
 def maxerr(a, b) -> float:
@@ -507,6 +528,270 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
     return res
 
 
+#: shapes of part c (module constants, so a rehearsal on the CPU can shrink them)
+STREAM_M, STREAM_BLOCK, STREAM_BLOCKS = 4096, 65536, 16
+TRANSFORM_BLOCK, TRANSFORM_BLOCKS = 8192, 4
+HOP_M, HOP100_BLOCK, HOP1_BLOCK = 1000, 16000, 8000
+TIER_M, TIER_BLOCK = 4096, 8192
+COMPAT_M, STFT_SAMPLES = 1000, 16384
+
+
+def host_err(got, want) -> float:
+    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+
+def stream_path(T, dev) -> dict:
+    """Phase 3c: the Streamer (``run`` on the collapsed path, with a packed
+    host transform through K1 and with a fused one, ``run_hopped`` at
+    hop = 100 and at hop = 1 through K2, checkpoint and restore), the
+    float32x2 tier and the compat classes.  Each is held against the direct
+    calls it stands for and the float64 ``ops`` path on the card."""
+    errs = {}
+    m, M, nb = STREAM_M, STREAM_BLOCK, STREAM_BLOCKS
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    blocks = list(host_signal(nb * M, SEED + 20).reshape(nb, M))
+    s = T.Streamer(plan, device=dev)
+    got = list(s.run(blocks))
+    st = T.init_state(plan, device=dev)
+    want = []
+    for b in blocks:
+        st, y = T.roundtrip(plan, st, torch.as_tensor(b, device=dev))
+        want.append(y.cpu().numpy())
+    if s.samples_processed != nb * M or len(got) != nb:
+        raise AssertionError(f"Streamer.run: {len(got)} blocks, {s.samples_processed} samples")
+    errs["stream_run_abs"] = max(host_err(g, w) for g, w in zip(got, want))
+    gate(f"Streamer.run (collapsed) {nb} x {M} vs a chain of roundtrip (abs)",
+         errs["stream_run_abs"], 1e-6)
+    with tempfile.TemporaryDirectory() as tmp:
+        first = T.Streamer(plan, device=dev)
+        list(first.run(blocks[:nb // 2]))
+        first.checkpoint(f"{tmp}/ckpt.npz")
+        second = T.Streamer(plan, device=dev)
+        second.restore(f"{tmp}/ckpt.npz")
+        rest = list(second.run(blocks[nb // 2:]))
+    errs["stream_restore_abs"] = max(host_err(g, w) for g, w in zip(rest, got[nb // 2:]))
+    gate(f"Streamer checkpoint after block {nb // 2} + restore, the rest vs uninterrupted "
+         "(abs)", errs["stream_restore_abs"], 1e-6)
+
+    # a transform on packed spectra (process -> K1 -> mask -> isdft) beside
+    # the same mask fused into api.roundtrip on complex spectra; inputs at
+    # the scale of tests/test_stream.py:87
+    M = TRANSFORM_BLOCK
+    xb = list(host_signal(TRANSFORM_BLOCKS * M, SEED + 21, 0.25).reshape(-1, M))
+    mask = (torch.arange(m, device=dev) < m // 4).float()
+    host = list(T.Streamer(plan, device=dev).run(xb, transform=lambda d: d * mask[:, None]))
+    fused = list(T.Streamer(plan, device=dev).run(xb, transform=lambda z: z * mask,
+                                                  fuse_transform=True))
+    ref = list(T.Streamer(f64(plan), device=dev).run(
+        xb, transform=lambda z: z * mask.double(), fuse_transform=True))
+    gate(f"Streamer.run packed transform (K1) vs fuse_transform, {len(xb)} x {M} (abs)",
+         max(host_err(a, b) for a, b in zip(host, fused)), 1e-6)
+    errs["stream_k1_transform_abs"] = max(host_err(a, b) for a, b in zip(host, ref))
+    gate("Streamer.run packed transform (K1) vs f64 (abs)",
+         errs["stream_k1_transform_abs"], 1e-4)
+    gate("Streamer.run fuse_transform vs f64 (abs)",
+         max(host_err(a, b) for a, b in zip(fused, ref)), 1e-4)
+
+    # run_hopped against one direct roundtrip_hopped call on the same blocks
+    hplan = T.Plan(HOP_M, window="hann", precision=T.FAST_PRECISION)
+    for hop, B, nb, chain, d_lim, y_lim in ((100, HOP100_BLOCK, 8, 8, 1e-7, 1e-6),
+                                            (1, HOP1_BLOCK, 4, 4, 1e-6, 1e-5)):
+        xs = host_signal(nb * B, SEED + 22 + hop).reshape(nb, B)
+        got = list(T.Streamer(hplan, refresh_every=1, device=dev).run_hopped(
+            list(xs), hop, chain=chain))
+        _, hd, ys = T.roundtrip_hopped(hplan, T.init_state(hplan, device=dev),
+                                       torch.as_tensor(xs, device=dev), hop, refresh_every=1)
+        hd, ys = hd.cpu().numpy(), ys.cpu().numpy()
+        e_d = max(host_err(g[0], w) for g, w in zip(got, hd))
+        e_y = max(host_err(g[1], w) for g, w in zip(got, ys))
+        # hop = 1 runs K2, whose y atomics sum in a run-dependent order
+        gate(f"Streamer.run_hopped(hop={hop}) m={HOP_M} {nb} x {B} spectra vs "
+             "roundtrip_hopped (abs)", e_d, d_lim)
+        gate(f"Streamer.run_hopped(hop={hop}) samples vs roundtrip_hopped (abs)", e_y, y_lim)
+        errs[f"stream_hop{hop}_abs"] = (e_d, e_y)
+
+    # the float32x2 tier: two chained blocks against float64 (the hard gate
+    # of tests/test_tpu.py:448, samples :456)
+    m, M = TIER_M, TIER_BLOCK
+    ext = T.Plan(m, window="hann", precision=T.Precision("float32", "float32x2"))
+    p64 = f64(ext)
+    x = signal(2 * M, SEED + 24, dev)
+    st, st64 = T.init_state(ext, device=dev), T.init_state(p64, device=dev)
+    for b in range(2):
+        blk = x[b * M:(b + 1) * M]
+        st, d = T.sdft(ext, st, blk)
+        st64, d64 = T.sdft(p64, st64, blk)
+        if tuple(d.shape) != (M, m, 2, 2) or not torch.isfinite(d).all():
+            raise AssertionError(f"float32x2 spectra {tuple(d.shape)} or not finite")
+        got = d[..., 0].double() + d[..., 1].double()
+        scale = d64.abs().max().item()
+        head = T.df_to_float64((d[:8, :, :, 0], d[:8, :, :, 1]))
+        if not np.array_equal(head, got[:8].cpu().numpy()):
+            raise AssertionError("df_to_float64 disagrees with hi + lo in float64")
+        err = maxerr(got, d64) / scale
+        gate(f"float32x2 sdft m={m} block {b} (df_to_float64) vs f64 / scale", err, 1e-9)
+        errs["tier_rel"] = max(errs.get("tier_rel", 0.0), err)
+        y = T.isdft(ext, d)
+        y64 = T.isdft(p64, d64)
+        err = maxerr(y, y64) / y64.abs().max().item()
+        gate(f"float32x2 isdft block {b} vs f64 (relative)", err, 1e-7)
+        errs["tier_isdft_rel"] = max(errs.get("tier_isdft_rel", 0.0), err)
+        del d, d64, got
+
+    # the compat classes: SDFT on the card against the same class on the CPU
+    # (float64 FD; isdft returns float32 samples, so it may differ by the
+    # rounding of the last of them: 2 ulps of float32, 2.4e-7 of scale)
+    x = host_signal(4 * COMPAT_M, SEED + 25).astype(np.float64)
+    gpu = T.SDFT(COMPAT_M, "hamming", 0.5, device=dev)
+    cpu = T.SDFT(COMPAT_M, "hamming", 0.5, device="cpu")
+    dg, dc = gpu.sdft(x), cpu.sdft(x)
+    errs["sdft_class_rel"] = host_err(dg.view(np.float64), dc.view(np.float64)) / np.abs(dc).max()
+    gate(f"SDFT({COMPAT_M}, hamming, 0.5) card vs CPU / scale", errs["sdft_class_rel"], 1e-9)
+    yg, yc = gpu.isdft(dg), cpu.isdft(dc)
+    gate("SDFT.isdft card vs CPU / scale", host_err(yg, yc) / np.abs(yc).max(), 2.4e-7)
+    # STFT against numpy framing and np.fft.rfft in float64
+    x = np.random.default_rng(SEED + 26).standard_normal(STFT_SAMPLES).clip(-1, 1)
+    for dftsize in (None, 600):
+        for shift in (False, True):
+            stft = T.STFT(512, 128, dftsize, "hann", shift, device=dev)
+            n, w = stft.analysis_window_size, stft._analysis_window()
+            frames = np.stack([x[i:i + n] for i in range(0, x.size - n + 1, 128)]) * w
+            if shift:
+                frames = np.fft.fftshift(frames, axes=-1)
+            gate(f"STFT(512, 128, dftsize={dftsize}, shift={shift}) vs numpy (abs)",
+                 host_err(stft.stft(x).view(np.float64),
+                          (np.fft.rfft(frames, axis=-1) / n).view(np.float64)), 1e-12)
+    stft = T.STFT(1024, 256, device=dev)
+    y = stft.istft(stft.stft(x))
+    gate("STFT(1024, 256) WOLA interior vs input (abs)",
+         host_err(y[2048:x.size - 2048], x[2048:x.size - 2048]), 1e-10)
+    return errs
+
+
+def interleaved(fns: dict, reps: int) -> dict:
+    """Host-clock seconds of each function, called in turns ``reps`` times
+    after one warm-up each; every call ends on the host with its results."""
+    for fn in fns.values():
+        fn()
+    out = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[k].append(time.perf_counter() - t0)
+    return out
+
+
+def spread(ts) -> str:
+    ms = sorted(t * 1e3 for t in ts)
+    return f"median {float(np.median(ms)):.4f} ms (range {ms[0]:.4f}-{ms[-1]:.4f}, n={len(ms)})"
+
+
+def stream_timings(T, dev, card: str, k1_ms: float) -> dict:
+    """Phase 5, this slice's calls: the Streamer's overlap against a
+    sequential loop, run_hopped against its per-block loop, and the price of
+    the float32x2 tier beside float64 ``ops`` and K1 float32."""
+    res = {}
+    m = STREAM_M
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    mask = (torch.arange(m, device=dev) < m // 4).float()
+    s = T.Streamer(plan, device=dev)
+    # the collapsed round trip is host-bound (device ~0.15 of ~1 ms per
+    # block); the packed transform through K1 keeps the device busy longer
+    # than the host takes to queue it
+    for cell, M, nb, transform in (
+            ("collapsed", STREAM_BLOCK, STREAM_BLOCKS, None),
+            ("packed K1 transform", STREAM_BLOCK // 4, 8, lambda d: d * mask[:, None])):
+        blocks = list(host_signal(nb * M, SEED + 30).reshape(nb, M))
+
+        def run_streamer(blocks=blocks, transform=transform):
+            s.reset()
+            for _ in s.run(blocks, transform=transform):
+                pass
+
+        def run_loop(blocks=blocks, transform=transform):
+            st = T.init_state(plan, device=dev)
+            for b in blocks:
+                x = torch.as_tensor(b, device=dev)
+                if transform is None:
+                    st, y = T.roundtrip(plan, st, x)
+                else:
+                    st, d = T.sdft(plan, st, x)
+                    y = T.isdft(plan, transform(d))
+                y.cpu().numpy()
+
+        t = interleaved({"run": run_streamer, "loop": run_loop}, 7)
+        t_run, t_seq = float(np.median(t["run"])), float(np.median(t["loop"]))
+        print(f"timing: Streamer.run {nb} x {M} m={m} ({cell}): {spread(t['run'])}, "
+              f"{nb * M / t_run:.4e} samples/s [{card}]", flush=True)
+        print(f"timing: sequential loop (numpy in, the same calls, .cpu() out) same blocks: "
+              f"{spread(t['loop'])}, {nb * M / t_seq:.4e} samples/s [{card}]", flush=True)
+        print(f"timing: Streamer overlap ({cell}) = 1 - T_run/T_seq = "
+              f"{1 - t_run / t_seq:.4f} (medians) [{card}]", flush=True)
+        res[f"overlap {cell}"] = (t_run, t_seq)
+
+    hplan = T.Plan(HOP_M, window="hann", precision=T.FAST_PRECISION)
+    B, nb = HOP100_BLOCK, 16
+    xs = list(host_signal(nb * B, SEED + 31).reshape(nb, B))
+    hs = T.Streamer(hplan, refresh_every=1, device=dev)
+
+    def hopped_streamer():
+        hs.reset()
+        for _ in hs.run_hopped(xs, 100, chain=16):
+            pass
+
+    def hopped_loop():
+        st = T.init_state(hplan, device=dev)
+        for b in xs:
+            st, hd, y = T.roundtrip_hopped(hplan, st, torch.as_tensor(b[None], device=dev),
+                                           100, refresh_every=1)
+            hd.cpu().numpy(), y.cpu().numpy()
+
+    t = interleaved({"run_hopped": hopped_streamer, "loop": hopped_loop}, 5)
+    for k in t:
+        print(f"timing: {k} hop=100 m={HOP_M} {nb} x {B}: {spread(t[k])}, "
+              f"{nb * B / float(np.median(t[k])):.4e} samples/s [{card}]", flush=True)
+    res["run_hopped"] = tuple(float(np.median(t[k])) for k in ("run_hopped", "loop"))
+
+    # the float32x2 tier's two legs against float64 ops and K1 float32
+    m, M = TIER_M, TIER_BLOCK
+    ext = T.Plan(m, window="hann", precision=T.Precision("float32", "float32x2"))
+    p64 = f64(ext)
+    x = signal(M, SEED + 32, dev)
+    st, st64 = T.init_state(ext, device=dev), T.init_state(p64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, d = T.sdft(ext, st, x)
+    torch.cuda.synchronize()
+    peak_a = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    T.isdft(ext, d)
+    torch.cuda.synchronize()
+    peak_s = torch.cuda.max_memory_allocated() - base
+    _, d64 = T.sdft(p64, st64, x)
+    legs = {"float32x2 sdft": lambda: T.sdft(ext, st, x),
+            "float32x2 isdft": lambda: T.isdft(ext, d),
+            "float64 ops sdft": lambda: T.sdft(p64, st64, x),
+            "float64 ops isdft": lambda: T.isdft(p64, d64)}
+    for name, fn in legs.items():
+        dv = device_ms(fn, 2, 1)
+        w = wall_ms(fn, 2, 1)
+        print(f"timing: {name} m={m} M={M}: device {dv:.4f} ms ({M / dv * 1e3:.4e} "
+              f"samples/s), wall {w:.4f} ms ({M / w * 1e3:.4e} samples/s) [{card}]",
+              flush=True)
+        res[name] = (dv, w)
+    print(f"timing: K1 planar f32 m={m} M=65536 device {k1_ms:.4f} ms "
+          f"({65536 / k1_ms * 1e3:.4e} samples/s) [{card}]", flush=True)
+    print(f"timing: float32x2 peak device memory above its inputs: sdft "
+          f"{peak_a / 2**20:.1f} MiB, isdft {peak_s / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated) [{card}]", flush=True)
+    return res
+
+
 def main() -> int:
     card = require_cuda()
     dev = torch.device("cuda", 0)
@@ -535,11 +820,21 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    S.LAUNCHES = Q.LAUNCHES = 0
+    errs.update(stream_path(T, dev))
+    torch.cuda.synchronize()
+    part_c = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+    print(f"stream part launches: {part_c}", flush=True)
+    for name, n in part_c.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the stream part")
+        launches[name] += n
 
     vs_plain = kernels_vs_plain(T, S, Q, dev)
     vs_plain.update({f"kparts_{v}": e for v, e in probes_vs_plain(P, dev).items()})
     times = timings(T, S, Q, dev, card)
     times.update(driver_timings(T, P, dev, card, times["k1_planar_float32"][0]))
+    times.update(stream_timings(T, dev, card, times["k1_planar_float32"][0]))
     print(f"main path errors: {json.dumps(errs)}", flush=True)
     print(f"TF32 after the run: matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} "

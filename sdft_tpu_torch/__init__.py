@@ -9,11 +9,15 @@ and numpy, never jax.
 
 from .api import (isdft, isdft_interleaved, refresh, roundtrip, roundtrip_hopped,
                   sdft, sdft_hopped, sdft_interleaved, sdft_power)
+from .compat import SDFT, STFT
 from .config import DEFAULT_PRECISION, FAST_PRECISION, Precision
 from .cplx import from_complex, to_complex
 from .kernels import kernel_supported
+from .metrics import roundtrip_snr_db, snr_db
+from .ops.twofloat import df_to_float64
 from .plan import Plan, plan_from_jax
 from .state import State, init_state, reset_state, state_from_arrays, state_to_arrays
+from .stream import Streamer, iter_blocks
 from .windows import Window
 
 __version__ = "0.1.0"
@@ -22,6 +26,10 @@ __all__ = [
     "Plan",
     "State",
     "Window",
+    "SDFT",
+    "STFT",
+    "Streamer",
+    "iter_blocks",
     "Precision",
     "DEFAULT_PRECISION",
     "FAST_PRECISION",
@@ -37,6 +45,9 @@ __all__ = [
     "kernel_supported",
     "to_complex",
     "from_complex",
+    "snr_db",
+    "roundtrip_snr_db",
+    "df_to_float64",
     "init_state",
     "reset_state",
     "state_to_arrays",

@@ -13,6 +13,11 @@ go through the kernel wrappers on every device (the plain PyTorch versions
 on a CPU tensor, the CUDA kernels on a CUDA tensor); other plans (float64,
 m < 128) take the reference ``ops`` path.  A channel batch runs one launch
 per channel.
+
+Extended plans (``Precision(fd="float32x2")``) run ``sdft`` and ``isdft``
+in the double-word tier (``ops.twofloat``), as ``sdft_tpu.api`` does; every
+other entry point treats them as float32 (``fd_dtype``) on the ``ops`` path,
+since ``kernel_supported`` takes float32 FD plans only.
 """
 
 from __future__ import annotations
@@ -26,15 +31,9 @@ from .kernels.spectra import (forward_block, forward_block_power,
 from .ops import lti
 from .ops.analysis import refresh_state, sdft_block
 from .ops.synthesis import isdft_block
+from .ops.twofloat import isdft_block_df, sdft_block_df
 from .plan import Plan
 from .state import State, batch_state, stack_states
-
-
-def _reject_extended(plan: Plan) -> None:
-    if plan.precision.extended:
-        raise NotImplementedError(
-            "the float32x2 extended FD tier is not ported yet "
-            "(ROADMAP queue 1, item 9)")
 
 
 def _samples(state: State, samples, ndims=(1, 2)) -> torch.Tensor:
@@ -91,8 +90,14 @@ def sdft(plan: Plan, state: State, samples, layout: str = "packed",
         raise ValueError(f"layout must be 'packed' or 'planar', got {layout!r}")
     if spectra_dtype and layout != "planar":
         raise ValueError("spectra_dtype requires layout='planar'")
-    _reject_extended(plan)
     x = _samples(state, samples)
+    if plan.precision.extended:
+        # double-word tier (ops.twofloat): dfts gain a trailing (hi, lo)
+        # axis, (..., M, m, 2, 2)
+        if layout != "packed" or spectra_dtype:
+            raise ValueError("the float32x2 extended tier emits packed "
+                             "(hi, lo) spectra only")
+        return sdft_block_df(plan, state, x)
     if kernel_supported(plan, x.shape[-1], spectra_dtype):
         return _per_channel(
             lambda st, xc: forward_block(plan, st, xc, layout, spectra_dtype),
@@ -104,7 +109,6 @@ def sdft_power(plan: Plan, state: State, samples,
                spectra_dtype: str | None = None):
     """Forward analysis emitting the power spectrum |dft|^2 per sample:
     (new_state, power) with power (M, m) / (C, M, m) real."""
-    _reject_extended(plan)
     x = _samples(state, samples)
     if kernel_supported(plan, x.shape[-1], spectra_dtype):
         return _per_channel(
@@ -122,14 +126,24 @@ def sdft_power(plan: Plan, state: State, samples,
 def isdft(plan: Plan, dfts) -> torch.Tensor:
     """Inverse synthesis: one sample per spectrum (c/src/sdft/sdft.h:666-672).
 
-    Accepts packed (..., M, m, 2) tensors or arrays, or complex ones."""
-    _reject_extended(plan)
+    Accepts packed (..., M, m, 2) tensors or arrays, or complex ones.  An
+    extended (float32x2) plan takes the (..., M, m, 2, 2) (hi, lo) spectra
+    of ``sdft`` and returns the correctly rounded samples (the ``hi`` half
+    of ``ops.twofloat.isdft_block_df``) in the TD dtype."""
     if isinstance(dfts, torch.Tensor) and dfts.is_complex():
         dfts = pack(dfts)
     elif isinstance(dfts, np.ndarray) and np.iscomplexobj(dfts):
         dfts = torch.as_tensor(from_complex(
-            dfts, dtype=np.float64 if plan.precision.fd == "float64" else np.float32))
+            dfts, dtype=np.float64 if plan.precision.fd_dtype == torch.float64
+            else np.float32))
     dfts = torch.as_tensor(dfts)
+    if plan.precision.extended:
+        if dfts.ndim not in (4, 5) or tuple(dfts.shape[-2:]) != (2, 2):
+            raise ValueError(
+                "the float32x2 extended tier synthesizes from the packed "
+                f"(..., M, m, 2, 2) (hi, lo) spectra, got {tuple(dfts.shape)}")
+        hi, _ = isdft_block_df(plan, dfts)
+        return hi.to(plan.precision.td_dtype)
     if dfts.ndim not in (3, 4) or dfts.shape[-1] != 2:
         raise ValueError(
             f"dfts must be packed (M, m, 2) or (C, M, m, 2), got {tuple(dfts.shape)}")
@@ -154,15 +168,20 @@ def roundtrip(plan: Plan, state: State, samples, transform=None):
 
     With a transform, the complex (M, m) [(C, M, m)] spectra are
     materialized, mapped by ``transform`` to the same shape, and
-    synthesized.
+    synthesized.  They come from the same route as ``sdft``'s (K1 for the
+    plans ``kernel_supported`` takes), so a transform fused here and the
+    same transform applied to ``sdft``'s packed spectra agree.  (The JAX
+    package reads them from its XLA path here, api.py:128-139.)
 
     Returns (new_state, y) with y (M,) or (C, M).
     """
-    _reject_extended(plan)
     x = _samples(state, samples)
     if transform is None:
         return lti.roundtrip_block_lti(plan, state, x)
-    st, d = _per_channel(lambda s, xc: sdft_block(plan, s, xc), state, x)
+    if kernel_supported(plan, x.shape[-1]):
+        st, d = _per_channel(lambda s, xc: forward_block(plan, s, xc), state, x)
+    else:
+        st, d = _per_channel(lambda s, xc: sdft_block(plan, s, xc), state, x)
     z = transform(unpack(d))
     if tuple(z.shape) != tuple(d.shape[:-1]):
         raise ValueError(
@@ -189,7 +208,6 @@ def roundtrip_hopped(plan: Plan, state: State, blocks, hop: int,
     [(nb, C, B//hop, m, 2)], ys (nb, B) [(nb, C, B)].  hop = 1 with a
     plan the kernels take runs one K2 launch per block and channel.
     """
-    _reject_extended(plan)
     xs = _samples(state, blocks, ndims=(2, 3))
     return lti.roundtrip_hopped_chain(plan, state, xs, hop, k_tile, refresh_every)
 
@@ -202,7 +220,6 @@ def sdft_hopped(plan: Plan, state: State, samples, hop: int):
     Returns (new_state, dfts) with dfts packed (ceil(M/hop), m, 2) or
     (C, ceil(M/hop), m, 2).
     """
-    _reject_extended(plan)
     return lti.sdft_hopped(plan, state, _samples(state, samples), hop)
 
 

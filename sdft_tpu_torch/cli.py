@@ -40,7 +40,7 @@ from .io.dump import dump_complex
 from .io.wav import read_wav, write_wav
 from .ops.lti import driver_sub_factor
 from .plan import Plan
-from .state import init_state
+from .state import init_state, require_device
 
 #: Cap on the hop-DFT bytes one driver segment holds on the device (the
 #: outputs are fetched per segment): bounds device memory for long streams.
@@ -52,17 +52,6 @@ def _value(extras: list, flag: str) -> str:
     if i + 1 >= len(extras):
         raise SystemExit(f"{flag} needs a value")
     return extras[i + 1]
-
-
-def _device(extras: list) -> torch.device:
-    """The device named by --device, else cuda:0; raises when that is a
-    CUDA device and there is no card (never falls back to the CPU)."""
-    dev = torch.device(_value(extras, "--device") if "--device" in extras
-                       else "cuda:0")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"no CUDA device for {dev}: the driver runs on "
-                           "cuda:0; pass --device cpu to run on the CPU")
-    return dev
 
 
 def main(argv=None) -> int:
@@ -85,7 +74,8 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--mesh (the sharded driver) is not ported yet (ROADMAP queue 1, "
             "item 11)")
-    device = _device(extras)
+    device = require_device(_value(extras, "--device") if "--device" in extras
+                            else "cuda:0")
     fd = "float32" if "--fd32" in extras else "float64"
 
     # hops shorter than 8 samples run tiles of several hops (ops.lti)

@@ -26,8 +26,8 @@ import dataclasses
 import torch
 
 _REAL_DTYPES = ("float32", "float64")
-#: FD-only extended tier of the JAX package (double-word float32 pairs).
-#: Plans may name it; the port does not implement it yet.
+#: FD-only extended tier (double-word float32 pairs, ``ops.twofloat``):
+#: ``sdft``/``isdft`` run it; every other entry point treats it as float32.
 _FD_DTYPES = _REAL_DTYPES + ("float32x2",)
 
 _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,

@@ -23,12 +23,18 @@ def unpack(p: torch.Tensor) -> torch.Tensor:
     return torch.view_as_complex(p.contiguous())
 
 
+def to_numpy(a) -> np.ndarray:
+    """Host-side: a tensor on any device (bfloat16 as float32) or an
+    array-like -> numpy array."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    return np.asarray(a)
+
+
 def to_complex(p) -> np.ndarray:
     """Host-side: packed tensor or array -> numpy complex array."""
-    if isinstance(p, torch.Tensor):
-        p = p.detach().cpu().float() if p.dtype == torch.bfloat16 else p.detach().cpu()
-        p = p.numpy()
-    p = np.asarray(p)
+    p = to_numpy(p)
     if p.shape[-1] != 2:
         raise ValueError(f"packed layout needs trailing axis 2, got {p.shape}")
     return p[..., 0] + 1j * p[..., 1]

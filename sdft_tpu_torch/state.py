@@ -29,6 +29,16 @@ class State(NamedTuple):
     accumulator: torch.Tensor  # (..., m, 2) fd real — packed complex
 
 
+def require_device(device: torch.device | str) -> torch.device:
+    """``torch.device(device)``; raises when that is a CUDA device and there
+    is no card (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {dev}: pass device='cpu' "
+                           "(the CLI: --device cpu) to run on the CPU")
+    return dev
+
+
 def init_state(plan: Plan, channels: int | None = None,
                device: torch.device | str = "cpu") -> State:
     """Time-zero state on ``device``; with ``channels``, a batched state."""

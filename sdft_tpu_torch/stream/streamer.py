@@ -1,0 +1,227 @@
+"""Endless bounded-memory streaming driver (counterpart of
+``sdft_tpu.stream.streamer``).
+
+Generalizes the reference's hop-chunked streaming protocol (test/test.c:
+69-83: process hopsize samples per call, state persists in the plan) into a
+block pipeline.  ``Streamer.run`` is one loop on every device, as in the
+JAX package: it queues block k (upload, round trip, copy back) and only
+then waits for block k-1's copy back and yields it, so on a card block k
+computes while the host hands out block k-1.  Memory is O(block),
+independent of stream length.
+
+Checkpoint/resume: the resumable state is (offset, delayline, accumulator)
+plus the stream position; ``checkpoint``/``restore`` use the JAX package's
+``.npz`` keys, so a checkpoint written by either package's Streamer
+continues the stream in the other.
+"""
+
+from __future__ import annotations
+
+import pathlib
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from ..api import isdft as _isdft
+from ..api import refresh as _refresh
+from ..api import roundtrip as _roundtrip
+from ..api import roundtrip_hopped as _roundtrip_hopped
+from ..api import sdft as _sdft
+from ..cplx import to_numpy
+from ..plan import Plan
+from ..state import (State, init_state, require_device, state_from_arrays,
+                     state_to_arrays)
+
+
+def _wait(y: torch.Tensor, done) -> np.ndarray:
+    """The host tensor ``y`` as numpy, once the copy that fills it (recorded
+    by the CUDA event ``done``; None on the CPU) has landed."""
+    if done is not None:
+        done.synchronize()
+    return to_numpy(y)
+
+
+class Streamer:
+    """Stateful block-stream processor for one or many channels."""
+
+    def __init__(self, plan: Plan, channels: int | None = None,
+                 forward: Callable | None = None,
+                 inverse: Callable | None = None,
+                 refresh_every: int | None = None,
+                 device: torch.device | str = "cuda:0"):
+        """Args:
+          plan: the plan.
+          channels: None for a mono (M,) stream, else channel count C.
+          forward/inverse: optional overrides for the block ops; default to
+            ``api.sdft``/``api.isdft``.
+          refresh_every: if set, exactly rebuild the accumulator from the
+            delayline every N blocks (``api.refresh``), which resets the
+            rounding drift of endless streams.  None disables.
+          device: where the stream runs (default cuda:0).  A CUDA device
+            with no card raises; nothing falls back to the CPU.
+        """
+        self.device = require_device(device)
+        self.plan = plan
+        self.channels = channels
+        self.refresh_every = refresh_every
+        self._blocks_since_refresh = 0
+        # With default ops and no spectral transform, round trips take the
+        # collapsed LTI path (ops.lti): spectra never exist.
+        self._fused_roundtrip = forward is None and inverse is None
+        self._forward = forward or (lambda st, x: _sdft(plan, st, x))
+        self._inverse = inverse or (
+            lambda d: _isdft(plan, torch.as_tensor(d, device=self.device)))
+        self.state: State = init_state(plan, channels, device=self.device)
+        self.samples_processed = 0
+
+    def _maybe_refresh(self) -> None:
+        if self.refresh_every is None:
+            return
+        self._blocks_since_refresh += 1
+        if self._blocks_since_refresh >= self.refresh_every:
+            self.state = _refresh(self.plan, self.state)
+            self._blocks_since_refresh = 0
+
+    def process(self, block) -> torch.Tensor:
+        """Analyze one block; returns its spectra (a tensor on the device)."""
+        self.state, dfts = self._forward(self.state, block)
+        self.samples_processed += np.shape(block)[-1]
+        self._maybe_refresh()
+        return dfts
+
+    def synthesize(self, dfts) -> torch.Tensor:
+        """Inverse-transform one block of spectra."""
+        return self._inverse(dfts)
+
+    def roundtrip(self, block, transform: Callable | None = None) -> torch.Tensor:
+        """Analyze + synthesize one block.
+
+        Without ``transform`` the spectra are never materialized (collapsed
+        LTI path).  With ``transform`` (complex spectra -> same shape) it
+        runs inside ``api.roundtrip``.
+        """
+        self.state, y = _roundtrip(self.plan, self.state, block, transform)
+        self.samples_processed += np.shape(block)[-1]
+        self._maybe_refresh()
+        return y
+
+    def _step(self, x: torch.Tensor, transform, fuse_transform: bool) -> torch.Tensor:
+        if self._fused_roundtrip and (transform is None or fuse_transform):
+            return self.roundtrip(x, transform)
+        dfts = self.process(x)
+        if transform is not None:
+            dfts = transform(dfts)
+        return self.synthesize(dfts)
+
+    def run(self, blocks: Iterable, transform: Callable | None = None,
+            fuse_transform: bool = False) -> Iterator[np.ndarray]:
+        """Round-trip a stream of blocks.
+
+        Args:
+          blocks: iterable of (M,) / (C, M) sample blocks.
+          transform: optional spectral-domain callback applied between
+            analysis and synthesis.  By default it receives the *packed*
+            (..., m, 2) spectra tensor of each block.  With
+            ``fuse_transform`` it must instead map *complex* (..., M, m)
+            spectra to the same shape, inside ``api.roundtrip``.
+          fuse_transform: run the transform inside ``api.roundtrip``.
+            Requires the default forward/inverse ops.
+
+        Yields:
+          synthesized sample blocks as numpy arrays, one per input block,
+          each once the next block is queued (module docstring).
+        """
+        if fuse_transform and (transform is None or not self._fused_roundtrip):
+            raise ValueError("fuse_transform needs a transform and the "
+                             "default forward/inverse ops")
+        pending = None      # the previous block's host copy and its copy's event
+        for block in blocks:
+            # neither copy syncs the stream: a pageable upload is staged at
+            # once, and the copy back lands in a fresh pinned tensor
+            x = torch.as_tensor(to_numpy(block)).to(self.device, non_blocking=True)
+            y = self._step(x, transform, fuse_transform).to("cpu", non_blocking=True)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            if pending is not None:
+                yield _wait(*pending)           # sync the *previous* block only
+            pending = y, done
+        if pending is not None:
+            yield _wait(*pending)
+
+    def run_hopped(self, blocks: Iterable, hop: int, chain: int = 16
+                   ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Chained driver-protocol streaming: groups ``chain`` equal-length
+        blocks into one ``api.roundtrip_hopped`` call and fetches each
+        group's outputs once.
+
+        Args:
+          blocks: iterable of equal-length (M,) / (C, M) sample blocks, M a
+            multiple of ``hop`` (a shorter final group is fine).
+          hop: spectra emission stride in samples.
+          chain: blocks per group.
+
+        Yields:
+          (hop_dfts, samples) per input block: the packed (M//hop, m, 2)
+          first-of-hop spectra and the (M,) synthesized samples, as numpy
+          arrays.
+
+        The accumulator refresh cadence (``refresh_every``) applies within
+        each group, restarting at group boundaries.
+        """
+        buf: list = []
+
+        def flush():
+            xs = torch.as_tensor(np.stack([to_numpy(b) for b in buf]), device=self.device)
+            self.state, hd, ys = _roundtrip_hopped(
+                self.plan, self.state, xs, hop, refresh_every=self.refresh_every)
+            self.samples_processed += xs.shape[0] * xs.shape[-1]
+            hd, ys = to_numpy(hd), to_numpy(ys)
+            buf.clear()
+            for b in range(hd.shape[0]):
+                yield hd[b], ys[b]
+
+        for block in blocks:
+            buf.append(block)
+            if len(buf) == chain:
+                yield from flush()
+        if buf:
+            yield from flush()
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    def checkpoint(self, path: str | pathlib.Path) -> None:
+        """Snapshot carry state + stream position to an .npz file."""
+        np.savez(path, samples_processed=self.samples_processed,
+                 **state_to_arrays(self.state))
+
+    def restore(self, path: str | pathlib.Path) -> None:
+        with np.load(path) as data:
+            self.samples_processed = int(data["samples_processed"])
+            self.state = state_from_arrays(
+                {k: data[k] for k in ("offset", "delayline", "accumulator")},
+                device=self.device)
+        # the refresh cadence restarts at the checkpoint boundary
+        self._blocks_since_refresh = 0
+
+    def reset(self) -> None:
+        self.state = init_state(self.plan, self.channels, device=self.device)
+        self.samples_processed = 0
+        self._blocks_since_refresh = 0
+
+
+def iter_blocks(samples: np.ndarray, block: int, pad: bool = False
+                ) -> Iterator[np.ndarray]:
+    """Split (..., n) samples into (..., block) chunks (the last one padded
+    with zeros when ``pad``, else truncated, like the drivers' whole-hop
+    truncation, test/test.c:61)."""
+    n = samples.shape[-1]
+    stop = n if pad else (n // block) * block
+    for i in range(0, stop, block):
+        chunk = samples[..., i:i + block]
+        if chunk.shape[-1] < block:
+            width = [(0, 0)] * (chunk.ndim - 1) + [(0, block - chunk.shape[-1])]
+            chunk = np.pad(chunk, width)
+        yield chunk

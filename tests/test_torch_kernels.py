@@ -242,6 +242,26 @@ def test_fused_roundtrip_matches_pallas_interpret(latency):
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=5e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("channels", [None, 2])
+def test_roundtrip_transform_reads_the_k1_spectra(channels):
+    """On a plan the kernels take, roundtrip(transform) reads its spectra
+    from the K1 wrapper, so it equals sdft -> transform -> isdft bit for bit
+    (the JAX package reads its XLA path there instead, api.py:128-139)."""
+    _, tp = _plans(128, window="hann", latency=0.5)
+    shape = (channels, 300) if channels else (300,)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(shape)
+                        .clip(-1, 1).astype(np.float32))
+    mask = torch.arange(128) < 40
+    st0 = T.init_state(tp, channels)
+    assert T.kernel_supported(tp, x.shape[-1])
+    st, y = T.roundtrip(tp, st0, x, transform=lambda z: z * mask)
+    want_st, d = T.sdft(tp, st0, x)
+    want = T.isdft(tp, d * mask[:, None])
+    assert torch.equal(y, want)
+    assert torch.equal(st.accumulator, want_st.accumulator)
+    assert torch.equal(st.delayline, want_st.delayline)
+
+
 # -- on the card: each kernel against its plain version ------------------------------
 
 @pytest.mark.cuda

@@ -128,15 +128,25 @@ def test_f32_state_continues_across_packages():
 
 
 def test_slice_refuses_what_it_does_not_port():
+    """Extended (float32x2) plans route as in ``sdft_tpu.api``: ``sdft`` is
+    packed (hi, lo) only and ``isdft`` takes only those spectra; the other
+    entry points run them as float32.  Malformed calls raise ValueError."""
     tp = T.Plan(256, precision=T.FAST_PRECISION)
     st = T.init_state(tp)
     xs = torch.zeros(2, 64)
     ext = T.Plan(256, precision=T.Precision("float32", "float32x2"))
-    for call in (lambda s: T.sdft(ext, s, xs[0]), lambda s: T.roundtrip(ext, s, xs[0]),
-                 lambda s: T.roundtrip_hopped(ext, s, xs, 8),
-                 lambda s: T.sdft_hopped(ext, s, xs[0], 8)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call(T.init_state(ext))
+    _, d = T.sdft(ext, T.init_state(ext), xs[0])
+    assert tuple(d.shape) == (64, 256, 2, 2)
+    assert tuple(T.isdft(ext, d).shape) == (64,)
+    with pytest.raises(ValueError, match="packed"):
+        T.sdft(ext, T.init_state(ext), xs[0], layout="planar")
+    with pytest.raises(ValueError, match=r"\(hi, lo\)"):
+        T.isdft(ext, d[..., 0])
+    _, y = T.roundtrip(ext, T.init_state(ext), xs[0])
+    _, hd, ys = T.roundtrip_hopped(ext, T.init_state(ext), xs, 8)
+    _, hs = T.sdft_hopped(ext, T.init_state(ext), xs[0], 8)
+    assert (tuple(y.shape), tuple(hd.shape), tuple(ys.shape), tuple(hs.shape)) == (
+        (64,), (2, 8, 256, 2), (2, 64), (8, 256, 2))
     with pytest.raises(ValueError):
         T.roundtrip_hopped(tp, st, torch.zeros(2, 63), 2)
     with pytest.raises(ValueError):
