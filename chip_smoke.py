@@ -40,8 +40,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
   4. kernels   each kernel against its plain PyTorch version on the same
                inputs, at the main path's shapes;
   5. timings   device times (torch.profiler) of each kernel and its plain
-               version at m = 4096 on 65536-sample blocks (K1), m = 1000 on
-               8000-sample blocks (K2) and the probes at 512 tiles; the
+               version at m = 4096 on 65536-sample blocks (K1, all five
+               store forms, each beside the bytes it moves, its bound and
+               its share of the bound), m = 1000 on 8000-sample blocks (K2)
+               and the probes at 512 tiles; torch.stft at hop 1 beside K1
+               (its library yardstick, held against K1's spectra); ``sdft``
+               on 8 channels of 32768 (device, wall, peak memory: each
+               channel's spectra written in place); the
                collapsed round trip for k_tile in {128, 256, 512, 1024} at
                m = 4096 on 65536-sample blocks and on 8 channels of 32768,
                FP32 against TF32; the hop = 100 driver on 4000- and
@@ -301,6 +306,24 @@ def driver_path(T, dev) -> dict:
     return errs
 
 
+def probe_bounds(P, nt: int = 512) -> dict:
+    """Bounds of the probes' two TPU functions at the main path's shapes
+    (m = 4096, K = 128, PAD = 64, nt tiles): the rows of c0 read, the
+    thi/tlo tiles, the tables of "tables", and two (K, m) f32 planes per
+    tile stored; six bf16 products of (K, K) by (K, m) per tile on the
+    tensor cores, and about 8 f32 flops per stored value."""
+    m, K, pad = 4096, 128, 64
+    W = m + 2 * pad
+    out = 2 * nt * K * m * 4
+    read = nt * 2 * W * 4 + 2 * nt * K * K * 2
+    tc, f32 = 12 * nt * K * K * m, 8 * 2 * nt * K * m
+    res = {"full": bound(read + out, f32, tc),
+           "tables": bound(read + out + 2 * K * W * (4 + 2), f32, tc)}
+    for v, (b_ms, b_by) in res.items():
+        print(f"  kparts {v} nt={nt}: bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return res
+
+
 def probes_vs_plain(P, dev) -> dict:
     """Phase 4, the probes: each variant against its plain version on the
     same seeded inputs at 512 tiles.  store and vpu 2e-6 abs; the products'
@@ -394,17 +417,42 @@ def device_ms(fn, reps: int, warmup: int = 2) -> float:
     return us / 1e3 / reps
 
 
+#: published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32
+#: flop/s outside the tensor cores, bf16 tensor-core flop/s
+PEAK_BYTES, PEAK_F32, PEAK_BF16_TC = 3.35e12, 67e12, 989e12
+#: flops per output bin of the tile body (running sum 4, phasor product 6,
+#: demodulation 6, Hann stencil 8, power 3: about 25) and of K2's y (4 more)
+K1_FLOPS_PER_BIN, K2_FLOPS_PER_BIN = 25, 29
+#: bytes per output bin of each K1 store form
+FORM_BYTES = {("packed", "float32"): 8, ("planar", "float32"): 8,
+              ("planar", "bfloat16"): 4, ("power", "float32"): 4, ("power", "bfloat16"): 2}
+
+
+def bound(nbytes: float, f32_flops: float = 0.0, tc_flops: float = 0.0) -> tuple:
+    """The least time the card could take (ms) and what bounds it: bytes
+    over HBM's rate, or operations over their peak rates."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (f32_flops / PEAK_F32 + tc_flops / PEAK_BF16_TC) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tile_input_bytes(pro) -> int:
+    """Bytes the kernels read once: the carries, the deltas, the table."""
+    return sum(t.numel() * t.element_size() for t in (pro.c0, pro.delta, pro.phase))
+
+
 def timings(T, S, Q, dev, card: str) -> dict:
-    """Phase 5: kernel and plain-version times at the main path's shapes.
+    """Phase 5: kernel and plain-version times at the main path's shapes,
+    every K1 store form beside its bound, and K1 beside torch.stft.
     "device" is the card's busy time per call (profiler), "wall" the time
     per call back to back (CUDA events)."""
     res = {}
     from sdft_tpu_torch.kernels._build import library
 
     lib = library()
-    print(f"timing: resident blocks per SM at K={S.TILE_K}: spectra "
-          f"{lib.sdft_spectra_occupancy(S.TILE_K, 1)}, scan "
-          f"{lib.sdft_scan_occupancy(S.TILE_K, 1)} (hann)", flush=True)
+    print(f"timing: resident blocks per SM at K={S.TILE_K} (hann): spectra "
+          f"{lib.sdft_spectra_occupancy(S.TILE_K)}, scan "
+          f"{lib.sdft_scan_occupancy(S.TILE_K)}", flush=True)
     m, M = 4096, 65536
     plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
     st = T.init_state(plan, device=dev)
@@ -414,15 +462,16 @@ def timings(T, S, Q, dev, card: str) -> dict:
     w_pro = wall_ms(lambda: S.spectra_prologue(plan, st, x), 10)
     print(f"timing: K1 prologue m={m} M={M}: device {t_pro:.4f} ms, wall "
           f"{w_pro:.4f} ms [{card}]", flush=True)
-    for form, dtype in (("planar", "float32"), ("planar", "bfloat16"),
-                        ("power", "bfloat16")):
+    for form, dtype in S.STORES:
         k = device_ms(lambda: S.launch_spectra(plan, pro, form, dtype), 10)
         p = device_ms(lambda: S.spectra_reference(plan, pro, form, dtype), 3, 1)
-        nbytes = M * m * (2 if form == "planar" else 1) * (4 if dtype == "float32" else 2)
+        nbytes = M * m * FORM_BYTES[form, dtype] + tile_input_bytes(pro)
+        b_ms, b_by = bound(nbytes, K1_FLOPS_PER_BIN * M * m)
         print(f"timing: K1 {form} {dtype} m={m} M={M}: kernel device {k:.4f} ms "
-              f"({M / k * 1e3:.4e} samples/s, {nbytes / k / 1e6:.1f} GB/s "
-              f"stored), plain device {p:.4f} ms [{card}]", flush=True)
-        res[f"k1_{form}_{dtype}"] = (k, p)
+              f"({M / k * 1e3:.4e} samples/s, {nbytes / k / 1e6:.1f} GB/s), {nbytes / 1e9:.4f} GB "
+              f"moved, bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.1%} of bound; plain device "
+              f"{p:.4f} ms; {S.store_bytes(m, form, dtype)}-byte stores [{card}]", flush=True)
+        res[f"k1_{form}_{dtype}"] = (k, p, b_ms, b_by)
     for dtype in (None, "bfloat16"):
         e2e = wall_ms(lambda: T.sdft(plan, st, x, "planar", dtype), 10)
         dev_t = device_ms(lambda: T.sdft(plan, st, x, "planar", dtype), 10)
@@ -430,6 +479,7 @@ def timings(T, S, Q, dev, card: str) -> dict:
               f"{e2e:.4f} ms ({M / e2e * 1e3:.4e} samples/s), device "
               f"{dev_t:.4f} ms [{card}]", flush=True)
     del pro
+    res["k1_library"] = stft_beside_k1(T, plan, x, card)
 
     m, B = 1000, 8000
     plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
@@ -439,17 +489,86 @@ def timings(T, S, Q, dev, card: str) -> dict:
     synth = Q.synthesis_row(plan, dev)
     k = device_ms(lambda: Q.launch_scan(plan, pro, synth, "packed"), 20)
     p = device_ms(lambda: Q.forward_and_y_reference(plan, pro, synth, "packed"), 5, 1)
+    nbytes = B * m * 8 + B * 4 + tile_input_bytes(pro) + synth.numel() * 4
+    b_ms, b_by = bound(nbytes, K2_FLOPS_PER_BIN * B * m)
     print(f"timing: K2 packed m={m} B={B}: kernel device {k:.4f} ms "
-          f"({B / k * 1e3:.4e} samples/s, {B * m * 8 / k / 1e6:.1f} GB/s "
-          f"stored), plain device {p:.4f} ms [{card}]", flush=True)
+          f"({B / k * 1e3:.4e} samples/s, {nbytes / k / 1e6:.1f} GB/s), bound {b_ms:.4f} ms "
+          f"({b_by}), {b_ms / k:.1%} of bound; plain device {p:.4f} ms; no single "
+          f"PyTorch call computes it (library: none) [{card}]", flush=True)
     xs = signal(8 * B, SEED + 9, dev).reshape(8, B)
     chain = wall_ms(lambda: T.roundtrip_hopped(plan, st, xs, 1), 3, 1) / 8
     chain_dev = device_ms(lambda: T.roundtrip_hopped(plan, st, xs, 1), 3, 1) / 8
     print(f"timing: roundtrip_hopped(hop=1) m={m} B={B} refresh_every=1: wall "
           f"{chain:.4f} ms per block ({B / chain * 1e3:.4e} samples/s), device "
           f"{chain_dev:.4f} ms per block [{card}]", flush=True)
-    res["k2_packed"] = (k, p)
+    res["k2_packed"] = (k, p, b_ms, b_by)
+    res["sdft_batch"] = batch_timings(T, dev, card)
     return res
+
+
+def stft_beside_k1(T, plan, x, card: str) -> float:
+    """torch.stft at hop 1 as K1's library yardstick (the port never calls
+    it): its device time, and its frames against K1's spectra.  Frame f of
+    the periodic-Hann STFT of 2m points, scaled by 1/(2m), is K1's row
+    f + 2m - 1 (the demodulation leaves no per-bin phase); the top `halo`
+    bins differ, since the reference mirrors around bin m-1 there."""
+    m = plan.dftsize
+    n = 2 * m
+    win = torch.hann_window(n, periodic=True, device=x.device)
+
+    def stft():
+        return torch.stft(x, n_fft=n, hop_length=1, window=win, center=False,
+                          return_complex=True)
+
+    lib_ms = device_ms(stft, 3, 1)
+    lib_wall = wall_ms(stft, 3, 1)
+    z = stft()
+    _, d = T.sdft(plan, T.init_state(plan, device=x.device), x)
+    err = scale = 0.0
+    top = 0.0
+    for f0 in range(0, z.shape[1], 8192):
+        ref = z[:, f0:f0 + 8192].T / n
+        got = torch.view_as_complex(d[f0 + n - 1:f0 + n - 1 + ref.shape[0]])
+        diff = (got - ref[:, :m]).abs()
+        err = max(err, diff[:, :m - 1].max().item())
+        top = max(top, diff[:, m - 1].max().item())
+        scale = max(scale, ref.abs().max().item())
+    agree = err <= 3e-6 * scale
+    print(f"timing: torch.stft(n_fft={n}, hop_length=1, hann periodic, center=False) on "
+          f"{x.numel()} samples: device {lib_ms:.4f} ms, wall {lib_wall:.4f} ms; frames / "
+          f"(2m) vs K1 rows 2m-1.. bins 0..m-2: {err:.3e} ({err / scale:.3e} of scale, "
+          f"{'agree' if agree else 'DO NOT agree'} at 3e-6), bin m-1 {top:.3e} (the "
+          f"reference's mirror around m-1) [{card}]", flush=True)
+    if not agree:
+        raise AssertionError("torch.stft and K1 do not agree")
+    del z, d
+    return lib_ms
+
+
+def batch_timings(T, dev, card: str, m: int = 4096, C: int = 8, M: int = 32768) -> tuple:
+    """sdft on an 8 x 32768 channel batch, planar f32: each channel's K1
+    launch writes its slice of the batch's outputs, so the peak device
+    memory above the inputs is the 8 GiB of spectra, not twice that."""
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(plan, channels=C, device=dev)
+    xs = signal(C * M, SEED + 40, dev).reshape(C, M)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = T.sdft(plan, st, xs, "planar")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    d = device_ms(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
+    w = wall_ms(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
+    spectra = 2 * C * M * m * 4
+    print(f"timing: sdft C={C} M={M} m={m} planar f32: device {d:.4f} ms, wall {w:.4f} ms, "
+          f"peak {peak / 2**30:.3f} GiB above the inputs for {spectra / 2**30:.1f} GiB of "
+          f"spectra [{card}]", flush=True)
+    if peak > 1.25 * spectra:
+        raise AssertionError(f"channel batch peak {peak / 2**30:.2f} GiB: spectra copied")
+    return d, w, peak
 
 
 def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
@@ -792,6 +911,26 @@ def stream_timings(T, dev, card: str, k1_ms: float) -> dict:
     return res
 
 
+def print_ptxas(log: pathlib.Path) -> None:
+    """ptxas's registers and spills of each K1/K2 instantiation (store
+    form, vector stores, window halo), from the build log."""
+    import re
+
+    found = 0
+    for block in log.read_text().split("Compiling entry function")[1:]:
+        name = re.match(r" '_ZN4sdft\d+(spectra|scan)_kernelILi(\d)ELb(\d)ELi(\d)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        if name and regs and spill:
+            found += 1
+            kind, store, vec, halo = name.groups()
+            print(f"ptxas: {kind}_kernel<store={store}, vector={vec}, halo={halo}>: "
+                  f"{regs.group(1)} registers, spill {spill.group(1)}/{spill.group(2)} B",
+                  flush=True)
+    if not found:
+        print("ptxas: no K1/K2 entries found in the build log", flush=True)
+
+
 def main() -> int:
     card = require_cuda()
     dev = torch.device("cuda", 0)
@@ -807,6 +946,7 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}", flush=True)
+    print_ptxas(lib.with_suffix(".log"))
 
     S.LAUNCHES = Q.LAUNCHES = 0
     errs = main_path(T, dev)
@@ -841,24 +981,29 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     src = "sdft_tpu_torch/kernels/csrc/"
+    k1, k2 = times["k1_planar_float32"], times["k2_packed"]
+    kp = probe_bounds(P)
     kernels = [
         {"name": "spectra", "route": "cuda", "source": src + "spectra.cu",
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:509",
          "launches": launches["spectra"], "max_abs_err": vs_plain["spectra"],
-         "ms": times["k1_planar_float32"][0],
-         "plain_ms": times["k1_planar_float32"][1]},
+         "ms": k1[0], "plain_ms": k1[1], "bound_ms": k1[2], "bound_by": k1[3],
+         "library_ms": times["k1_library"]},
         {"name": "scan", "route": "cuda", "source": src + "scan.cu",
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:147",
          "launches": launches["scan"], "max_abs_err": vs_plain["scan"],
-         "ms": times["k2_packed"][0], "plain_ms": times["k2_packed"][1]},
+         "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2], "bound_by": k2[3],
+         "library_ms": None},
         {"name": "kparts_make", "route": "cuda", "source": src + "kparts.cu",
          "replaces": "scripts/archive/exp_kparts.py:41",
          "launches": launches["kparts_make"], "max_abs_err": vs_plain["kparts_full"],
-         "ms": times["kparts_full"][0], "plain_ms": times["kparts_full"][1]},
+         "ms": times["kparts_full"][0], "plain_ms": times["kparts_full"][1],
+         "bound_ms": kp["full"][0], "bound_by": kp["full"][1], "library_ms": None},
         {"name": "kparts_tables", "route": "cuda", "source": src + "kparts.cu",
          "replaces": "scripts/archive/exp_kparts.py:215",
          "launches": launches["kparts_tables"], "max_abs_err": vs_plain["kparts_tables"],
-         "ms": times["kparts_tables"][0], "plain_ms": times["kparts_tables"][1]},
+         "ms": times["kparts_tables"][0], "plain_ms": times["kparts_tables"][1],
+         "bound_ms": kp["tables"][0], "bound_by": kp["tables"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ the plan alone, ``kernel_supported``: float32 plans with 128 <= m <= 2^19
 go through the kernel wrappers on every device (the plain PyTorch versions
 on a CPU tensor, the CUDA kernels on a CUDA tensor); other plans (float64,
 m < 128) take the reference ``ops`` path.  A channel batch runs one launch
-per channel.
+per channel; on the card each launch writes its channel's slice of the
+batch's outputs in place (no stacking copy).
 
 Extended plans (``Precision(fd="float32x2")``) run ``sdft`` and ``isdft``
 in the double-word tier (``ops.twofloat``), as ``sdft_tpu.api`` does; every
@@ -26,8 +27,8 @@ import numpy as np
 import torch
 
 from .cplx import from_complex, pack, unpack
-from .kernels.spectra import (forward_block, forward_block_power,
-                              kernel_supported)
+from .kernels.spectra import (empty_outputs, forward_block,
+                              forward_block_power, kernel_supported)
 from .ops import lti
 from .ops.analysis import refresh_state, sdft_block
 from .ops.synthesis import isdft_block
@@ -43,11 +44,18 @@ def _samples(state: State, samples, ndims=(1, 2)) -> torch.Tensor:
     return x
 
 
-def _per_channel(fn, state: State, x: torch.Tensor):
-    """Run ``fn(state, samples) -> (state, out)`` for one channel or each
-    channel of a batch; outputs (tensors or tuples of them) are stacked."""
+def _per_channel(fn, state: State, x: torch.Tensor, outs=None):
+    """Run ``fn(state, samples[, out]) -> (state, out)`` for one channel or
+    each channel of a batch.  With ``outs`` (the batch's outputs: a tensor,
+    or a tuple of them, with a leading channel axis) each channel writes its
+    slice in place; otherwise the channels' outputs are stacked."""
     if x.ndim == 1:
         return fn(state, x)
+    if outs is not None:
+        def part(c):
+            return tuple(o[c] for o in outs) if isinstance(outs, tuple) else outs[c]
+        return stack_states([fn(batch_state(state, c), xc, part(c))[0]
+                             for c, xc in enumerate(x)]), outs
     outs = [fn(batch_state(state, c), xc) for c, xc in enumerate(x)]
     st = stack_states([o[0] for o in outs])
     first = outs[0][1]
@@ -55,6 +63,15 @@ def _per_channel(fn, state: State, x: torch.Tensor):
         return st, tuple(torch.stack([o[1][j] for o in outs])
                          for j in range(len(first)))
     return st, torch.stack([o[1] for o in outs])
+
+
+def _kernel_outputs(plan: Plan, x: torch.Tensor, form: str, dtype: str | None):
+    """A channel batch's K1 outputs on the card, (C, M, m[, 2]), which each
+    channel's launch fills in place; None for one channel or on the CPU
+    (the plain versions' outputs are stacked)."""
+    if x.ndim == 1 or x.device.type != "cuda":
+        return None
+    return empty_outputs(tuple(x.shape), plan.dftsize, form, dtype or "float32", x.device)
 
 
 def _sdft_ops(plan: Plan, layout: str, spectra_dtype: str | None):
@@ -100,8 +117,9 @@ def sdft(plan: Plan, state: State, samples, layout: str = "packed",
         return sdft_block_df(plan, state, x)
     if kernel_supported(plan, x.shape[-1], spectra_dtype):
         return _per_channel(
-            lambda st, xc: forward_block(plan, st, xc, layout, spectra_dtype),
-            state, x)
+            lambda st, xc, out=None: forward_block(plan, st, xc, layout,
+                                                   spectra_dtype, out),
+            state, x, _kernel_outputs(plan, x, layout, spectra_dtype))
     return _per_channel(_sdft_ops(plan, layout, spectra_dtype), state, x)
 
 
@@ -112,8 +130,9 @@ def sdft_power(plan: Plan, state: State, samples,
     x = _samples(state, samples)
     if kernel_supported(plan, x.shape[-1], spectra_dtype):
         return _per_channel(
-            lambda st, xc: forward_block_power(plan, st, xc, spectra_dtype),
-            state, x)
+            lambda st, xc, out=None: forward_block_power(plan, st, xc,
+                                                         spectra_dtype, out),
+            state, x, _kernel_outputs(plan, x, "power", spectra_dtype))
 
     def run(st, xc):
         st, d = sdft_block(plan, st, xc)
@@ -179,7 +198,9 @@ def roundtrip(plan: Plan, state: State, samples, transform=None):
     if transform is None:
         return lti.roundtrip_block_lti(plan, state, x)
     if kernel_supported(plan, x.shape[-1]):
-        st, d = _per_channel(lambda s, xc: forward_block(plan, s, xc), state, x)
+        st, d = _per_channel(
+            lambda s, xc, out=None: forward_block(plan, s, xc, out=out), state, x,
+            _kernel_outputs(plan, x, "packed", None))
     else:
         st, d = _per_channel(lambda s, xc: sdft_block(plan, s, xc), state, x)
     z = transform(unpack(d))

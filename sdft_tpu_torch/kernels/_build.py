@@ -39,8 +39,8 @@ SIGNATURES = {
                          _F, _F, _F, _I, _I, _F, _I, _I, _P),
     "sdft_kparts_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _I, _P),
-    "sdft_spectra_occupancy": (_I, _I),
-    "sdft_scan_occupancy": (_I, _I),
+    "sdft_spectra_occupancy": (_I,),
+    "sdft_scan_occupancy": (_I,),
     "sdft_kparts_occupancy": (_I, _I),
 }
 

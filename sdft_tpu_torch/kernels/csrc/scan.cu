@@ -19,24 +19,51 @@
 //
 // What bounds it on this card: at hop = 1 every sample emits its whole
 // spectrum, so the O(M*m) spectra store bounds it as it bounds K1 (8 bytes
-// per bin in the packed f32 layout the driver returns).  The y reduction
-// adds a few flops per bin and one atomicAdd per row and block.
+// per bin in the packed f32 layout roundtrip_hopped reads: 64 MB, 0.020 ms, at
+// m = 1000 and B = 8000).  The y reduction adds 4 flops per bin.  At that
+// size a launch has only 16 chunks of 32 strips by 63 tiles of work, so
+// latency, not the store, is what a design can lose.
 //
 // How the design answers it: the spectra are written once, packed, by
-// coalesced row stores, and y is reduced from registers (warp shuffles,
-// then one atomic per row per block), so synthesis costs no second read of
-// the spectra.  The atomics sum the blocks' partial rows in an order that
+// coalesced vector stores, and y is reduced from registers: each warp sums
+// eight rows at a time by a transposed shuffle butterfly (nine shuffles
+// for eight rows) and adds each row with one atomicAdd, so synthesis
+// costs no second read of the spectra and no block barrier.  Strips of
+// two bins (K2_STRIP) keep twice K1's warps in flight on these small
+// blocks.  The atomics sum the warps' partial rows in an order that
 // changes from run to run, so y is reproducible only to f32 rounding.
+// Device time at m = 1000, B = 8000 (NVIDIA H100 80GB HBM3, 700 W;
+// kernels/compare_bodies.py, in turns with the previous body of one bin
+// per thread and aux in shared memory): 0.024-0.025 ms (was 0.032-0.033),
+// 77-81 % of its bound.
 
 #include "common.cuh"
 
 namespace sdft {
 
-template <int STORE>
-__global__ void __launch_bounds__(BX)
+template <int STORE, bool VEC, int HALO>
+__global__ void __launch_bounds__(WARPS * 32)
 scan_kernel(TileArgs a, void* out0, void* out1, const float2* synth,
             float* y, float y_scale) {
-  spectra_tiles<STORE, true>(a, out0, out1, synth, y, y_scale);
+  spectra_tiles<K2_STRIP, HALO, STORE, true, VEC>(a, out0, out1, synth, y, y_scale);
+}
+
+template <int STORE, bool VEC>
+int launch_halo(const TileArgs& a, cudaStream_t s, void* out0, void* out1,
+                const float2* synth, float* y, float y_scale) {
+  switch (a.halo) {
+    case 0: return launch_tiles<K2_STRIP>(scan_kernel<STORE, VEC, 0>, a, VEC, s, out0, out1, synth, y, y_scale);
+    case 1: return launch_tiles<K2_STRIP>(scan_kernel<STORE, VEC, 1>, a, VEC, s, out0, out1, synth, y, y_scale);
+    case 2: return launch_tiles<K2_STRIP>(scan_kernel<STORE, VEC, 2>, a, VEC, s, out0, out1, synth, y, y_scale);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int STORE>
+int launch(const TileArgs& a, bool vec, cudaStream_t s, void* out0, void* out1,
+           const float2* synth, float* y, float y_scale) {
+  return vec ? launch_halo<STORE, true>(a, s, out0, out1, synth, y, y_scale)
+             : launch_halo<STORE, false>(a, s, out0, out1, synth, y, y_scale);
 }
 
 }  // namespace sdft
@@ -46,7 +73,7 @@ extern "C" int sdft_scan_launch(const void* c0, const void* delta,
                                 void* out0, void* out1, void* y, int m, int M,
                                 int K, int nt, int halo, float w0, float w1,
                                 float w2, int roi_first, int roi_last,
-                                float y_scale, int store, int grid_y,
+                                float y_scale, int store, int vector,
                                 void* stream) {
   using namespace sdft;
   const TileArgs a{static_cast<const float2*>(c0),
@@ -56,15 +83,17 @@ extern "C" int sdft_scan_launch(const void* c0, const void* delta,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* sy = static_cast<const float2*>(synth);
   float* yy = static_cast<float*>(y);
+  const bool v = vector != 0;
   switch (store) {
-    case PACKED_F32: return launch_tiles(scan_kernel<PACKED_F32>, a, grid_y, s, out0, out1, sy, yy, y_scale);
-    case PLANAR_F32: return launch_tiles(scan_kernel<PLANAR_F32>, a, grid_y, s, out0, out1, sy, yy, y_scale);
-    case NO_SPECTRA: return launch_tiles(scan_kernel<NO_SPECTRA>, a, grid_y, s, out0, out1, sy, yy, y_scale);
+    case PACKED_F32: return launch<PACKED_F32>(a, v, s, out0, out1, sy, yy, y_scale);
+    case PLANAR_F32: return launch<PLANAR_F32>(a, v, s, out0, out1, sy, yy, y_scale);
+    case NO_SPECTRA: return launch<NO_SPECTRA>(a, v, s, out0, out1, sy, yy, y_scale);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Resident blocks per SM of the packed-f32 scan kernel (a diagnostic).
-extern "C" int sdft_scan_occupancy(int K, int halo) {
-  return sdft::occupancy(sdft::scan_kernel<sdft::PACKED_F32>, K, halo);
+// Resident blocks per SM of the packed-f32 scan kernel for Hann (a
+// diagnostic).
+extern "C" int sdft_scan_occupancy(int K) {
+  return sdft::occupancy<sdft::K2_STRIP>(sdft::scan_kernel<sdft::PACKED_F32, true, 1>, K);
 }

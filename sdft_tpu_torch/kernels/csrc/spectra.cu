@@ -10,29 +10,50 @@
 // common.cuh for the algebra, the Hermitian guards and the ROI).
 //
 // What bounds it on this card: the O(M*m) spectra store.  Every input
-// sample emits m complex bins — 32 KiB per sample at m = 4096 in f32 — while
-// it reads one delta and (per tile of K = 128 samples) one carry row of
-// 8 bytes per bin.  The arithmetic is about 25 flops per output bin, below
-// the card's f32 rate for that many bytes; but each bin's running sum is a
-// dependent chain, so the kernel needs enough resident warps to hide its
-// latency.
+// sample emits m bins — 32 KiB per sample at m = 4096 in packed or planar
+// f32, 16 KiB in bf16 planes or f32 power, 8 KiB in bf16 power — while it
+// reads one delta and, per tile of K = 128 samples, one carry row of 8
+// bytes per bin.  About 25 flops per output bin: below the card's f32 rate
+// for those bytes in every form, so each form's bound is its bytes over
+// 3.35 TB/s.
 //
-// How the design answers it: every output byte is written exactly once, in
-// its final form (packed, planar, bfloat16 or power), by coalesced row
-// stores; no intermediate spectra plane touches device memory.  The phase
-// table costs no device-memory bandwidth and little shared memory: the fine
-// phasors stay in registers and only K/8 + 1 coarse rows sit in shared
-// memory, which keeps several blocks resident per SM.  The carry is read
-// once per tile.
+// How the design answers it: every output byte is written once, in its
+// final form, by vector stores of whole 128-byte lines per warp; no
+// intermediate plane touches device memory, and the tile body (common.cuh)
+// keeps aux in registers, runs no barrier in its loop and gives each
+// thread four independent running sums.  Device times at m = 4096,
+// M = 65536 (NVIDIA H100 80GB HBM3, 700 W; kernels/compare_bodies.py, in
+// turns with the previous body of one bin per thread and aux in shared
+// memory): planar f32 0.71-0.74 ms (was 0.80-0.81), packed f32 0.78
+// (0.77), planar bf16 0.40 (0.64), power f32 0.40 (0.60), power bf16 0.30
+// (0.60-0.61); 87, 83, 82, 83 and 55 % of their bounds in chip_smoke.py.
+// torch.stft at hop 1 on the same samples, the nearest library call, took
+// 2.36 ms there.
 
 #include "common.cuh"
 
 namespace sdft {
 
-template <int STORE>
-__global__ void __launch_bounds__(BX)
+template <int STORE, bool VEC, int HALO>
+__global__ void __launch_bounds__(WARPS * 32)
 spectra_kernel(TileArgs a, void* out0, void* out1) {
-  spectra_tiles<STORE, false>(a, out0, out1, nullptr, nullptr, 0.f);
+  spectra_tiles<K1_STRIP, HALO, STORE, false, VEC>(a, out0, out1, nullptr, nullptr, 0.f);
+}
+
+template <int STORE, bool VEC>
+int launch_halo(const TileArgs& a, cudaStream_t s, void* out0, void* out1) {
+  switch (a.halo) {
+    case 0: return launch_tiles<K1_STRIP>(spectra_kernel<STORE, VEC, 0>, a, VEC, s, out0, out1);
+    case 1: return launch_tiles<K1_STRIP>(spectra_kernel<STORE, VEC, 1>, a, VEC, s, out0, out1);
+    case 2: return launch_tiles<K1_STRIP>(spectra_kernel<STORE, VEC, 2>, a, VEC, s, out0, out1);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int STORE>
+int launch(const TileArgs& a, bool vec, cudaStream_t s, void* out0, void* out1) {
+  return vec ? launch_halo<STORE, true>(a, s, out0, out1)
+             : launch_halo<STORE, false>(a, s, out0, out1);
 }
 
 }  // namespace sdft
@@ -41,7 +62,7 @@ extern "C" int sdft_spectra_launch(const void* c0, const void* delta,
                                    const void* table, void* out0, void* out1,
                                    int m, int M, int K, int nt, int halo,
                                    float w0, float w1, float w2, int roi_first,
-                                   int roi_last, int store, int grid_y,
+                                   int roi_last, int store, int vector,
                                    void* stream) {
   using namespace sdft;
   const TileArgs a{static_cast<const float2*>(c0),
@@ -49,17 +70,19 @@ extern "C" int sdft_spectra_launch(const void* c0, const void* delta,
                    static_cast<const float2*>(table),
                    m, M, K, nt, halo, w0, w1, w2, roi_first, roi_last};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool v = vector != 0;
   switch (store) {
-    case PACKED_F32: return launch_tiles(spectra_kernel<PACKED_F32>, a, grid_y, s, out0, out1);
-    case PLANAR_F32: return launch_tiles(spectra_kernel<PLANAR_F32>, a, grid_y, s, out0, out1);
-    case PLANAR_BF16: return launch_tiles(spectra_kernel<PLANAR_BF16>, a, grid_y, s, out0, out1);
-    case POWER_F32: return launch_tiles(spectra_kernel<POWER_F32>, a, grid_y, s, out0, out1);
-    case POWER_BF16: return launch_tiles(spectra_kernel<POWER_BF16>, a, grid_y, s, out0, out1);
+    case PACKED_F32: return launch<PACKED_F32>(a, v, s, out0, out1);
+    case PLANAR_F32: return launch<PLANAR_F32>(a, v, s, out0, out1);
+    case PLANAR_BF16: return launch<PLANAR_BF16>(a, v, s, out0, out1);
+    case POWER_F32: return launch<POWER_F32>(a, v, s, out0, out1);
+    case POWER_BF16: return launch<POWER_BF16>(a, v, s, out0, out1);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Resident blocks per SM of the packed-f32 spectra kernel (a diagnostic).
-extern "C" int sdft_spectra_occupancy(int K, int halo) {
-  return sdft::occupancy(sdft::spectra_kernel<sdft::PACKED_F32>, K, halo);
+// Resident blocks per SM of the packed-f32 spectra kernel for Hann (a
+// diagnostic).
+extern "C" int sdft_spectra_occupancy(int K) {
+  return sdft::occupancy<sdft::K1_STRIP>(sdft::spectra_kernel<sdft::PACKED_F32, true, 1>, K);
 }

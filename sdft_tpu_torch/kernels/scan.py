@@ -26,11 +26,14 @@ from ..ops.twiddle import synthesis_twiddles
 from ..plan import Plan
 from ..state import State
 from ._build import check, library
-from .spectra import (Prologue, allocate, emit, grid_y, launch_args,
-                      reference_spectra, spectra_prologue)
+from .spectra import (Prologue, allocate, emit, launch_args, reference_spectra,
+                      spectra_prologue, vector_stores)
 
 #: store codes of csrc/common.cuh (enum Store) that the scan kernel takes
 STORES = {"packed": 0, "planar": 1, None: 5}
+#: consecutive bins each K2 thread owns (csrc/common.cuh: K2_STRIP): half
+#: K1's, so the small blocks of the hop=1 chain fill the card
+STRIP = 2
 
 #: launches of the CUDA kernel (the plain version does not count)
 LAUNCHES = 0
@@ -74,8 +77,7 @@ def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_scan_launch(
             *args[:3], synth.data_ptr(), p0, p1, y.data_ptr(), *args[3:],
-            plan.synthesis_weight, STORES[layout],
-            grid_y(dev, m, pro.c0.shape[0]), stream)
+            plan.synthesis_weight, STORES[layout], int(vector_stores(m, STRIP)), stream)
     check(err, "sdft_scan_launch")
     LAUNCHES += 1
     return outs, y

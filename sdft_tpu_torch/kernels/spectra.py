@@ -43,10 +43,10 @@ from ._build import check, library
 TILE_K = 128
 #: largest dftsize the kernels take (as the JAX package's int32 phases)
 MAX_DFTSIZE = 1 << 19
-#: the kernels' output bins per thread block (csrc/common.cuh: BX)
-BLOCK_BINS = 128
-#: tiles each thread block walks (it loads its phase table once for them)
-TILES_PER_BLOCK = 4
+#: consecutive bins each K1 thread owns (csrc/common.cuh: K1_STRIP; a warp
+#: covers 32 * STRIP bins); the kernels size their grid themselves
+#: (common.cuh: launch_tiles)
+STRIP = 4
 #: rows per group of the two-level prefix sum over tiles
 PREFIX_GROUP = 32
 #: store codes of csrc/common.cuh (enum Store), by (form, element type)
@@ -223,19 +223,54 @@ def spectra_reference(plan: Plan, pro: Prologue, form: str = "packed",
     return emit(reference_spectra(plan, pro), form, dtype)
 
 
-def allocate(pro: Prologue, m: int, form: str, dtype: str):
-    """Output tensors of a store form, as (tensors to return, pointers)."""
-    dev = pro.c0.device
+def vector_stores(m: int, strip: int | None = None) -> bool:
+    """Whether a kernel with strips of ``strip`` bins (K1's STRIP by
+    default) runs its vector-store instantiation: every strip of every row
+    starts aligned when m % strip == 0 (the launchers refuse it otherwise);
+    else the scalar-store one runs."""
+    return m % (strip or STRIP) == 0
+
+
+def store_bytes(m: int, form: str, dtype: str) -> int:
+    """Bytes of one store instruction of a kernel thread in a store form:
+    the vector store of its STRIP bins of a plane, capped at 16 bytes (the
+    packed form's strip takes two), or with scalar stores one element (two
+    floats for packed)."""
+    elem = getattr(torch, dtype).itemsize * (2 if form == "packed" else 1)
+    return min(16, STRIP * elem) if vector_stores(m) else elem
+
+
+def empty_outputs(lead: tuple, m: int, form: str, dtype: str, device):
+    """Uninitialized outputs of a store form with leading shape ``lead``:
+    packed lead + (m, 2), a planar (re, im) pair of lead + (m,), or power
+    lead + (m,)."""
     tdt = getattr(torch, dtype)
     if form == "packed":
-        out = torch.empty((pro.M, m, 2), dtype=tdt, device=dev)
-        return out, (out.data_ptr(), None)
+        return torch.empty(lead + (m, 2), dtype=tdt, device=device)
     if form == "planar":
-        re = torch.empty((pro.M, m), dtype=tdt, device=dev)
-        im = torch.empty((pro.M, m), dtype=tdt, device=dev)
-        return (re, im), (re.data_ptr(), im.data_ptr())
-    out = torch.empty((pro.M, m), dtype=tdt, device=dev)
-    return out, (out.data_ptr(), None)
+        return tuple(torch.empty(lead + (m,), dtype=tdt, device=device)
+                     for _ in range(2))
+    return torch.empty(lead + (m,), dtype=tdt, device=device)
+
+
+def allocate(pro: Prologue, m: int, form: str, dtype: str, out=None):
+    """Output tensors of a store form, as (tensors to return, pointers).
+    ``out`` (a tensor, or the planar pair) is written in place instead of a
+    new allocation: one channel's contiguous slice of a batch's outputs."""
+    dev = pro.c0.device
+    outs = empty_outputs((pro.M,), m, form, dtype, dev) if out is None else out
+    planes = outs if isinstance(outs, tuple) else (outs,)
+    shape = (pro.M, m, 2) if form == "packed" else (pro.M, m)
+    align = store_bytes(m, form, dtype)
+    for t in planes:
+        if (tuple(t.shape) != shape or t.dtype != getattr(torch, dtype)
+                or t.device != dev or not t.is_contiguous() or t.data_ptr() % align):
+            raise ValueError(f"{form} output: need contiguous {dtype} {shape} on {dev}, "
+                             f"{align}-byte aligned, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    if len(planes) != (2 if form == "planar" else 1):
+        raise ValueError(f"{form} output: got {len(planes)} planes")
+    return outs, (planes[0].data_ptr(), planes[1].data_ptr() if form == "planar" else None)
 
 
 def launch_args(plan: Plan, pro: Prologue) -> tuple:
@@ -256,7 +291,7 @@ def launch_args(plan: Plan, pro: Prologue) -> tuple:
                 or not t.is_contiguous() or t.device != dev):
             raise ValueError(f"{name}: need contiguous float32 {shape} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 0 < pro.M <= nt * K or K % 16 or K > 256:  # common.cuh: RB, MAX_K
+    if not 0 < pro.M <= nt * K or K % 8 or K > 256:  # common.cuh: FINE, MAX_K
         raise ValueError(f"bad tiling: M={pro.M}, nt={nt}, K={K}")
     taps = [c * plan.analysis_weight for c in WINDOW_TAPS[plan.window]]
     first, last = plan.roi_bins
@@ -264,41 +299,30 @@ def launch_args(plan: Plan, pro: Prologue) -> tuple:
             m, pro.M, K, nt, WINDOW_HALO[plan.window], *taps, first, last)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def grid_y(device: torch.device, m: int, nt: int) -> int:
-    """Tile-parallel grid extent: blocks of about TILES_PER_BLOCK tiles, so
-    that the last wave of blocks is a small part of the run, but at least
-    four blocks per SM in all."""
-    sms = _sm_count(device)
-    per_sm = -(-4 * sms // -(-m // BLOCK_BINS))
-    return max(1, min(nt, max(-(-nt // TILES_PER_BLOCK), per_sm)))
-
-
 def launch_spectra(plan: Plan, pro: Prologue, form: str = "packed",
-                   dtype: str = "float32"):
-    """Launch K1 on the prologue's CUDA tensors; returns the spectra."""
+                   dtype: str = "float32", out=None):
+    """Launch K1 on the prologue's CUDA tensors; returns the spectra
+    (written into ``out`` when given, see ``allocate``)."""
     global LAUNCHES
     args = launch_args(plan, pro)
     dev = pro.c0.device
-    outs, (p0, p1) = allocate(pro, plan.dftsize, form, dtype)
+    outs, (p0, p1) = allocate(pro, plan.dftsize, form, dtype, out)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_spectra_launch(
             *args[:3], p0, p1, *args[3:], STORES[form, dtype],
-            grid_y(dev, plan.dftsize, pro.c0.shape[0]), stream)
+            int(vector_stores(plan.dftsize)), stream)
     check(err, "sdft_spectra_launch")
     LAUNCHES += 1
     return outs
 
 
-def _spectra(plan: Plan, pro: Prologue, form: str, dtype: str):
+def _spectra(plan: Plan, pro: Prologue, form: str, dtype: str, out=None):
     if pro.c0.device.type == "cpu":
+        if out is not None:
+            raise ValueError("in-place outputs are for the CUDA kernel")
         return spectra_reference(plan, pro, form, dtype)
-    return launch_spectra(plan, pro, form, dtype)
+    return launch_spectra(plan, pro, form, dtype, out)
 
 
 def _check_dtype(out_dtype):
@@ -308,12 +332,13 @@ def _check_dtype(out_dtype):
 
 
 def forward_block(plan: Plan, state: State, samples: torch.Tensor,
-                  layout: str = "packed", out_dtype: str | None = None):
+                  layout: str = "packed", out_dtype: str | None = None, out=None):
     """Forward analysis of one channel's block through K1.
 
     Returns (state, dfts): packed (M, m, 2) float32, or with
     layout="planar" a (re, im) pair of (M, m) planes, in bfloat16 if
-    ``out_dtype="bfloat16"`` (the scan itself stays float32).
+    ``out_dtype="bfloat16"`` (the scan itself stays float32).  On the card
+    ``out`` (tensors of those shapes) receives the spectra in place.
     """
     dtype = _check_dtype(out_dtype)
     if layout not in ("packed", "planar"):
@@ -321,12 +346,12 @@ def forward_block(plan: Plan, state: State, samples: torch.Tensor,
     if dtype != "float32" and layout != "planar":
         raise ValueError("non-f32 spectra require layout='planar'")
     pro = spectra_prologue(plan, state, samples)
-    return pro.state, _spectra(plan, pro, layout, dtype)
+    return pro.state, _spectra(plan, pro, layout, dtype, out)
 
 
 def forward_block_power(plan: Plan, state: State, samples: torch.Tensor,
-                        out_dtype: str | None = None):
+                        out_dtype: str | None = None, out=None):
     """Forward analysis emitting |dft|^2 as one (M, m) plane through K1."""
     dtype = _check_dtype(out_dtype)
     pro = spectra_prologue(plan, state, samples)
-    return pro.state, _spectra(plan, pro, "power", dtype)
+    return pro.state, _spectra(plan, pro, "power", dtype, out)

@@ -40,8 +40,10 @@ def require_device(device: torch.device | str) -> torch.device:
 
 
 def init_state(plan: Plan, channels: int | None = None,
-               device: torch.device | str = "cpu") -> State:
-    """Time-zero state on ``device``; with ``channels``, a batched state."""
+               device: torch.device | str = "cuda:0") -> State:
+    """Time-zero state on ``device`` (the card unless the caller asks for
+    the CPU; raises without one); with ``channels``, a batched state."""
+    device = require_device(device)
     m = plan.dftsize
     shape = () if channels is None else (channels,)
     return State(
@@ -67,8 +69,10 @@ def state_to_arrays(state: State) -> dict[str, np.ndarray]:
     }
 
 
-def state_from_arrays(arrays, device: torch.device | str = "cpu") -> State:
-    """State from a snapshot (this package's or ``sdft_tpu``'s)."""
+def state_from_arrays(arrays, device: torch.device | str = "cuda:0") -> State:
+    """State from a snapshot (this package's or ``sdft_tpu``'s) on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = require_device(device)
     return State(
         offset=torch.as_tensor(np.array(arrays["offset"], np.int32),
                                device=device),

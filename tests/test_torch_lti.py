@@ -54,7 +54,7 @@ def test_roundtrip_without_transform_matches_jax(window, latency):
     """Three chained blocks of 300 samples (not a multiple of the tile)."""
     jp, tp = _plans(128, window=window, latency=latency)
     x = _signal(900, seed=len(window))
-    js, ts = J.init_state(jp), T.init_state(tp)
+    js, ts = J.init_state(jp), T.init_state(tp, device="cpu")
     for b in range(3):
         js, jy = J.roundtrip(jp, js, x[b * 300:(b + 1) * 300])
         ts, ty = T.roundtrip(tp, ts, x[b * 300:(b + 1) * 300])
@@ -66,7 +66,7 @@ def test_roundtrip_roi_plan_matches_jax():
     jp, tp = _plans(128, window="hann", roi=(10, 100))
     x = _signal(512, seed=2)
     js, jy = J.roundtrip(jp, J.init_state(jp), x)
-    ts, ty = T.roundtrip(tp, T.init_state(tp), x)
+    ts, ty = T.roundtrip(tp, T.init_state(tp, device="cpu"), x)
     _close(ty, jy)
     _same_state(ts, js)
 
@@ -75,7 +75,7 @@ def test_roundtrip_roi_plan_matches_jax():
 def test_k_tile_changes_nothing_beyond_rounding(k_tile):
     jp, tp = _plans(96, window="blackman", latency=0.5)
     x = _signal(2 * 333, seed=k_tile)
-    js, ts = J.init_state(jp), T.init_state(tp)
+    js, ts = J.init_state(jp), T.init_state(tp, device="cpu")
     for b in range(2):
         js, jy = j_lti.roundtrip_block_lti(jp, js, x[b * 333:(b + 1) * 333])
         ts, ty = lti.roundtrip_block_lti(tp, ts, torch.as_tensor(x[b * 333:(b + 1) * 333]),
@@ -92,7 +92,7 @@ def test_roundtrip_channel_batch_with_desynchronized_offsets():
     x = _signal(C * 2 * M, seed=7).reshape(C, 2 * M)
     jst, tst = [], []
     for c in range(C):
-        js, ts = J.init_state(jp), T.init_state(tp)
+        js, ts = J.init_state(jp), T.init_state(tp, device="cpu")
         if c:
             js, _ = J.roundtrip(jp, js, np.zeros(37 * c))
             ts, _ = T.roundtrip(tp, ts, np.zeros(37 * c))
@@ -114,7 +114,7 @@ def test_roundtrip_channel_batch_with_desynchronized_offsets():
 def test_roundtrip_f32_matches_jax_with_ragged_chunks():
     jp, tp = _plans(64, precision=J.FAST_PRECISION)
     x = _signal(1000, seed=1).astype(np.float32)
-    js, ts = J.init_state(jp), T.init_state(tp)
+    js, ts = J.init_state(jp), T.init_state(tp, device="cpu")
     for lo, hi in [(0, 100), (100, 477), (477, 1000)]:
         js, jy = J.roundtrip(jp, js, x[lo:hi])
         ts, ty = T.roundtrip(tp, ts, x[lo:hi])
@@ -130,7 +130,7 @@ def test_lti_state_continues_in_sdft_of_both_packages():
     x = _signal(768, seed=3)
     js, _ = J.sdft(jp, J.init_state(jp), x[:256])
     _, jd = J.sdft(jp, js, x[256:])
-    ts, _ = T.roundtrip(tp, T.init_state(tp), x[:256])
+    ts, _ = T.roundtrip(tp, T.init_state(tp, device="cpu"), x[:256])
     _same_state(ts, js, 1e-11)
     _, td = T.sdft(tp, ts, x[256:])
     _close(td, jd)
@@ -143,8 +143,8 @@ def test_split4_runs_as_exact_float32():
     p4 = T.Plan(96, precision=T.Precision("float32", "float32", mxu="split4"))
     ph = T.Plan(96, precision=T.FAST_PRECISION)
     x = torch.as_tensor(_signal(384, seed=6).astype(np.float32))
-    s4, y4 = T.roundtrip(p4, T.init_state(p4), x)
-    sh, yh = T.roundtrip(ph, T.init_state(ph), x)
+    s4, y4 = T.roundtrip(p4, T.init_state(p4, device="cpu"), x)
+    sh, yh = T.roundtrip(ph, T.init_state(ph, device="cpu"), x)
     assert torch.equal(y4, yh) and torch.equal(s4.accumulator, sh.accumulator)
 
 
@@ -158,7 +158,7 @@ def test_roundtrip_hopped_matches_jax(hop, refresh_every):
     xs = _signal(3 * B, seed=hop).reshape(3, B)
     js, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp), xs, hop,
                                       refresh_every=refresh_every)
-    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp), xs, hop,
+    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, hop,
                                       refresh_every=refresh_every)
     assert tuple(thd.shape) == (3, B // hop, 96, 2) and tuple(tys.shape) == (3, B)
     _close(thd, jhd)
@@ -172,7 +172,7 @@ def test_roundtrip_hopped_channel_batch_matches_jax(hop):
     nb, C, B = 3, 2, 8 * hop
     xs = _signal(nb * C * B, seed=4).reshape(nb, C, B)
     js, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp, channels=C), xs, hop)
-    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, channels=C), xs, hop)
+    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, channels=C, device="cpu"), xs, hop)
     assert tuple(thd.shape) == (nb, C, B // hop, 64, 2)
     _close(thd, jhd)
     _close(tys, jys)
@@ -185,15 +185,15 @@ def test_k_tile_is_the_fifth_positional_argument():
     jp, tp = _plans(64, window="hann")
     xs = _signal(3 * 48, seed=5).reshape(3, 48)
     js, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp), xs, 2, 1, 16)
-    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp), xs, 2, 1, 16)
+    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, 2, 1, 16)
     _close(thd, jhd)
     _close(tys, jys)
-    _, thd8, tys8 = T.roundtrip_hopped(tp, T.init_state(tp), xs, 2, 1)
+    _, thd8, tys8 = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, 2, 1)
     _close(thd8, thd, 1e-13)
     _close(tys8, tys, 1e-13)
     # ignored for hop >= 8
-    _, a, _ = T.roundtrip_hopped(tp, T.init_state(tp), xs, 8, 1, 64)
-    _, b, _ = T.roundtrip_hopped(tp, T.init_state(tp), xs, 8, 1)
+    _, a, _ = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, 8, 1, 64)
+    _, b, _ = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, 8, 1)
     assert torch.equal(a, b)
 
 
@@ -202,7 +202,7 @@ def test_roundtrip_hopped_f32_matches_jax():
     xs = _signal(4 * 800, seed=9).astype(np.float32).reshape(4, 800)
     for hop in (100, 4):
         js, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp), xs, hop)
-        ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp), xs, hop)
+        ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, hop)
         np.testing.assert_allclose(_np(thd), _np(jhd), atol=2e-7)
         np.testing.assert_allclose(_np(tys), _np(jys), atol=1e-4)
 
@@ -212,7 +212,7 @@ def test_fused_driver_block_matches_jax():
     x = _signal(3 * 96, seed=10)
     for hop, refresh in ((32, True), (3, False)):
         js, jhd, jy = j_lti.roundtrip_hopped_block(jp, J.init_state(jp), x, hop, refresh)
-        ts, thd, ty = lti.roundtrip_hopped_block(tp, T.init_state(tp), torch.as_tensor(x),
+        ts, thd, ty = lti.roundtrip_hopped_block(tp, T.init_state(tp, device="cpu"), torch.as_tensor(x),
                                                  hop, refresh)
         _close(thd, jhd)
         _close(ty, jy)
@@ -226,7 +226,7 @@ def test_sdft_hopped_matches_jax_and_the_sliced_spectra(hop):
     jp, tp = _plans(96, window="blackman", roi=(4, 90))
     B = 250  # a partial last hop still emits its spectrum
     x = _signal(2 * B, seed=13 + hop)
-    js, ts, tf = J.init_state(jp), T.init_state(tp), T.init_state(tp)
+    js, ts, tf = J.init_state(jp), T.init_state(tp, device="cpu"), T.init_state(tp, device="cpu")
     for b in range(2):
         blk = x[b * B:(b + 1) * B]
         js, jd = J.sdft_hopped(jp, js, blk, hop)
@@ -242,11 +242,11 @@ def test_sdft_hopped_channel_batch():
     jp, tp = _plans(64)
     x = _signal(3 * 256, seed=12).reshape(3, 256)
     _, jd = J.sdft_hopped(jp, J.init_state(jp, channels=3), x, 32)
-    ts, td = T.sdft_hopped(tp, T.init_state(tp, channels=3), x, 32)
+    ts, td = T.sdft_hopped(tp, T.init_state(tp, channels=3, device="cpu"), x, 32)
     assert tuple(td.shape) == (3, 8, 64, 2)
     _close(td, jd)
     with pytest.raises(ValueError, match="hop"):
-        T.sdft_hopped(tp, T.init_state(tp), x[0], 0)
+        T.sdft_hopped(tp, T.init_state(tp, device="cpu"), x[0], 0)
 
 
 # -- interleaved frames ----------------------------------------------------------------
@@ -255,7 +255,7 @@ def test_interleaved_frames_match_jax():
     jp, tp = _plans(64, window="hann")
     frames = _signal(2 * 200, seed=14).reshape(200, 2)
     js, jd = J.sdft_interleaved(jp, J.init_state(jp, channels=2), frames)
-    ts, td = T.sdft_interleaved(tp, T.init_state(tp, channels=2), frames)
+    ts, td = T.sdft_interleaved(tp, T.init_state(tp, channels=2, device="cpu"), frames)
     assert tuple(td.shape) == (2, 200, 64, 2)
     _close(td, jd)
     _same_state(ts, js)
@@ -263,7 +263,7 @@ def test_interleaved_frames_match_jax():
     assert tuple(y.shape) == (200, 2)
     _close(y, J.isdft_interleaved(jp, jd))
     with pytest.raises(ValueError, match="interleaved"):
-        T.sdft_interleaved(tp, T.init_state(tp, channels=2), frames[:, 0])
+        T.sdft_interleaved(tp, T.init_state(tp, channels=2, device="cpu"), frames[:, 0])
     with pytest.raises(ValueError, match="channel-batched"):
         T.isdft_interleaved(tp, td[0])
 

@@ -156,7 +156,7 @@ def test_sdft_isdft_carried_stream_matches_jax(m, window, latency, roi, M):
     state after each, and isdft of each block's spectra."""
     jp, tp = _plans(m, window=window, latency=latency, roi=roi)
     x = _signal(3 * M, seed=m)
-    js, ts = J.init_state(jp), T.init_state(tp)
+    js, ts = J.init_state(jp), T.init_state(tp, device="cpu")
     for b in range(3):
         blk = x[b * M:(b + 1) * M].astype(np.float32)
         js, jd = J.sdft(jp, js, blk)
@@ -174,11 +174,11 @@ def test_planar_and_power_ops_path_match_jax(m, window, latency, roi, M):
     jp, tp = _plans(m, window=window, latency=latency, roi=roi)
     x = _signal(M, seed=5).astype(np.float32)
     _, (jre, jim) = J.sdft(jp, J.init_state(jp), x, layout="planar")
-    _, (re, im) = T.sdft(tp, T.init_state(tp), x, layout="planar")
+    _, (re, im) = T.sdft(tp, T.init_state(tp, device="cpu"), x, layout="planar")
     _close(re, jre)
     _close(im, jim)
     _, jpw = J.sdft_power(jp, J.init_state(jp), x)
-    _, pw = T.sdft_power(tp, T.init_state(tp), x)
+    _, pw = T.sdft_power(tp, T.init_state(tp, device="cpu"), x)
     _close(pw, jpw)
 
 
@@ -187,7 +187,7 @@ def test_refresh_matches_jax(m, window, latency, roi, M):
     jp, tp = _plans(m, window=window, latency=latency, roi=roi)
     x = _signal(M, seed=7).astype(np.float32)
     js, _ = J.sdft(jp, J.init_state(jp), x)
-    ts, _ = T.sdft(tp, T.init_state(tp), x)
+    ts, _ = T.sdft(tp, T.init_state(tp, device="cpu"), x)
     jr = J.refresh(jp, js)
     _close(T.refresh(tp, ts).accumulator, jr.accumulator)
     _close(analysis.refresh_state(tp, ts).accumulator,
@@ -227,23 +227,39 @@ def test_roundtrip_transform_matches_jax():
         return z * (torch.arange(z.shape[-1]) < 40)
 
     js, jy = J.roundtrip(jp, J.init_state(jp), x, transform=jlow)
-    ts, ty = T.roundtrip(tp, T.init_state(tp), x, transform=tlow)
+    ts, ty = T.roundtrip(tp, T.init_state(tp, device="cpu"), x, transform=tlow)
     _close(ty, jy)
     _close(ts.accumulator, js.accumulator)
     with pytest.raises(ValueError):
-        T.roundtrip(tp, T.init_state(tp), x, transform=lambda z: z[:-1])
+        T.roundtrip(tp, T.init_state(tp, device="cpu"), x, transform=lambda z: z[:-1])
 
 
 def test_channel_batch_matches_jax():
     jp, tp = _plans(130, window="hamming")
     x = _signal(2 * 200, seed=2).reshape(2, 200).astype(np.float32)
     js, jd = J.sdft(jp, J.init_state(jp, channels=2), x)
-    ts, td = T.sdft(tp, T.init_state(tp, channels=2), x)
+    ts, td = T.sdft(tp, T.init_state(tp, channels=2, device="cpu"), x)
     _close(td, jd)
     _close(ts.accumulator, js.accumulator)
     _close(T.isdft(tp, td), J.isdft(jp, jd))
     _close(T.refresh(tp, ts).accumulator, J.refresh(jp, js).accumulator)
     assert T.reset_state(tp, ts).accumulator.abs().max() == 0
+
+
+@pytest.mark.parametrize("make", ["init_state", "state_from_arrays"])
+def test_state_constructors_default_to_the_card_and_raise_without_one(make, monkeypatch):
+    """States are made on cuda:0 unless the caller asks for the CPU; with
+    no card that raises and names device='cpu' (nothing falls back)."""
+    tp = T.Plan(128, precision=T.FAST_PRECISION)
+    arrays = T.state_to_arrays(T.init_state(tp, device="cpu"))
+    call = {"init_state": lambda **kw: T.init_state(tp, **kw),
+            "state_from_arrays": lambda **kw: T.state_from_arrays(arrays, **kw)}[make]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(device="cuda:0")
+    assert call(device="cpu").accumulator.device.type == "cpu"
 
 
 # -- checkpoints cross packages ---------------------------------------------------
@@ -255,7 +271,7 @@ def test_state_crosses_both_ways_and_continues_the_stream(tmp_path):
     js, _ = J.sdft(jp, J.init_state(jp), x[:300])
     path = tmp_path / "jax_state.npz"
     np.savez(path, **J.state_to_arrays(js))
-    ts = T.state_from_arrays(np.load(path))
+    ts = T.state_from_arrays(np.load(path), device="cpu")
     ts, td = T.sdft(tp, ts, x[300:600])
     jref, jd = J.sdft(jp, js, x[300:600])
     _close(td, jd)

@@ -43,7 +43,7 @@ def test_hop1_chain_f64_matches_jax(m, window, latency, roi, refresh_every):
     xs = _signal(3 * 120, seed=m).reshape(3, 120)
     js, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp), xs, 1,
                                       refresh_every=refresh_every)
-    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp), xs, 1,
+    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, 1,
                                       refresh_every=refresh_every)
     assert _rel(thd, jhd) <= 1e-12
     assert _rel(tys, jys) <= 1e-12
@@ -58,7 +58,7 @@ def test_hop1_chain_f32_matches_pallas_chain(refresh_every, latency):
     xs = _signal(3 * 200, seed=5).reshape(3, 200)
     js, jhd, jys = _chain_hop1_pallas_jit(jp, J.init_state(jp), xs,
                                           refresh_every, True)
-    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp), xs, 1,
+    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, 1,
                                       refresh_every=refresh_every)
     assert _rel(thd, jhd) <= 1.5e-5
     np.testing.assert_allclose(tys.numpy(), np.asarray(jys), atol=5e-4)
@@ -71,7 +71,7 @@ def test_hop1_chain_channel_batch_matches_jax():
     tp = T.plan_from_jax(jp)
     xs = _signal(2 * 2 * 90, seed=8).reshape(2, 2, 90)
     js, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp, channels=2), xs, 1)
-    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, channels=2), xs, 1)
+    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, channels=2, device="cpu"), xs, 1)
     assert tuple(thd.shape) == (2, 2, 90, 130, 2)
     assert _rel(thd, jhd) <= 1e-12 and _rel(tys, jys) <= 1e-12
     assert _rel(ts.accumulator, js.accumulator) <= 1e-12
@@ -83,14 +83,14 @@ def test_f32_channel_batch_through_the_kernel_wrappers():
     jp = J.Plan(256, window="blackman", precision=J.FAST_PRECISION)
     tp = T.plan_from_jax(jp)
     x = torch.as_tensor(_signal(2 * 150, seed=6).reshape(2, 150))
-    st, d = T.sdft(tp, T.init_state(tp, channels=2), x)
-    _, p = T.sdft_power(tp, T.init_state(tp, channels=2), x, "bfloat16")
-    _, (re, im) = T.sdft(tp, T.init_state(tp, channels=2), x, "planar")
+    st, d = T.sdft(tp, T.init_state(tp, channels=2, device="cpu"), x)
+    _, p = T.sdft_power(tp, T.init_state(tp, channels=2, device="cpu"), x, "bfloat16")
+    _, (re, im) = T.sdft(tp, T.init_state(tp, channels=2, device="cpu"), x, "planar")
     for c in range(2):
-        sc, dc = T.sdft(tp, T.init_state(tp), x[c])
+        sc, dc = T.sdft(tp, T.init_state(tp, device="cpu"), x[c])
         assert torch.equal(d[c], dc) and torch.equal(re[c], dc[..., 0])
         assert torch.equal(st.accumulator[c], sc.accumulator)
-        _, pc = T.sdft_power(tp, T.init_state(tp), x[c], "bfloat16")
+        _, pc = T.sdft_power(tp, T.init_state(tp, device="cpu"), x[c], "bfloat16")
         assert torch.equal(p[c], pc)
     # against the JAX XLA path on the same batch (f32 class)
     _, jd = J.sdft(jp, J.init_state(jp, channels=2), x.numpy())
@@ -105,7 +105,7 @@ def test_stream_crosses_packages_mid_chain():
     xs = _signal(4 * 100, seed=12).reshape(4, 100)
     _, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp), xs, 1)
     js, _, _ = J.roundtrip_hopped(jp, J.init_state(jp), xs[:2], 1)
-    ts = T.state_from_arrays(J.state_to_arrays(js))
+    ts = T.state_from_arrays(J.state_to_arrays(js), device="cpu")
     ts, thd, tys = T.roundtrip_hopped(tp, ts, xs[2:], 1)
     assert _rel(thd, np.asarray(jhd)[2:]) <= 1e-12
     assert _rel(tys, np.asarray(jys)[2:]) <= 1e-12
@@ -121,7 +121,7 @@ def test_f32_state_continues_across_packages():
     x = _signal(600, seed=13)
     js, _ = J.sdft(jp, J.init_state(jp), x[:300])
     _, jd = J.sdft(jp, js, x[300:])
-    ts = T.state_from_arrays(J.state_to_arrays(js))
+    ts = T.state_from_arrays(J.state_to_arrays(js), device="cpu")
     assert ts.accumulator.dtype == torch.float32
     _, td = T.sdft(tp, ts, x[300:])
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=2e-6, rtol=1e-4)
@@ -132,19 +132,19 @@ def test_slice_refuses_what_it_does_not_port():
     packed (hi, lo) only and ``isdft`` takes only those spectra; the other
     entry points run them as float32.  Malformed calls raise ValueError."""
     tp = T.Plan(256, precision=T.FAST_PRECISION)
-    st = T.init_state(tp)
+    st = T.init_state(tp, device="cpu")
     xs = torch.zeros(2, 64)
     ext = T.Plan(256, precision=T.Precision("float32", "float32x2"))
-    _, d = T.sdft(ext, T.init_state(ext), xs[0])
+    _, d = T.sdft(ext, T.init_state(ext, device="cpu"), xs[0])
     assert tuple(d.shape) == (64, 256, 2, 2)
     assert tuple(T.isdft(ext, d).shape) == (64,)
     with pytest.raises(ValueError, match="packed"):
-        T.sdft(ext, T.init_state(ext), xs[0], layout="planar")
+        T.sdft(ext, T.init_state(ext, device="cpu"), xs[0], layout="planar")
     with pytest.raises(ValueError, match=r"\(hi, lo\)"):
         T.isdft(ext, d[..., 0])
-    _, y = T.roundtrip(ext, T.init_state(ext), xs[0])
-    _, hd, ys = T.roundtrip_hopped(ext, T.init_state(ext), xs, 8)
-    _, hs = T.sdft_hopped(ext, T.init_state(ext), xs[0], 8)
+    _, y = T.roundtrip(ext, T.init_state(ext, device="cpu"), xs[0])
+    _, hd, ys = T.roundtrip_hopped(ext, T.init_state(ext, device="cpu"), xs, 8)
+    _, hs = T.sdft_hopped(ext, T.init_state(ext, device="cpu"), xs[0], 8)
     assert (tuple(y.shape), tuple(hd.shape), tuple(ys.shape), tuple(hs.shape)) == (
         (64,), (2, 8, 256, 2), (2, 64), (8, 256, 2))
     with pytest.raises(ValueError):

@@ -219,7 +219,7 @@ def test_run_hopped_chained_matches_unchained():
     rng = np.random.default_rng(9)
     x = np.clip(rng.standard_normal(7 * B), -3, 3) / 2
 
-    ref_state = T.init_state(tp)
+    ref_state = T.init_state(tp, device="cpu")
     want = []
     for blk in iter_blocks(x, B):
         _, hd = T.sdft_hopped(tp, ref_state, blk, hop)

@@ -113,7 +113,7 @@ def test_extended_tier_matches_f64(window):
     jp, tp = _plans(m, window=window)
     x = _signal(nb * M, seed=2)
     _, d64s = J.sdft(p64, J.init_state(p64), x.astype(np.float64))
-    js, ts = J.init_state(jp), T.init_state(tp)
+    js, ts = J.init_state(jp), T.init_state(tp, device="cpu")
     for b in range(nb):
         blk = x[b * M:(b + 1) * M]
         d64 = np.asarray(d64s)[b * M:(b + 1) * M]
@@ -135,7 +135,7 @@ def test_extended_tier_roi_and_channels():
     x = _signal(C * M, seed=3).reshape(C, M)
     _, d64 = J.sdft(p64, J.init_state(p64, channels=C), x.astype(np.float64))
     _, jd = jtf.sdft_block_df(jp, J.init_state(jp, channels=C), x)
-    ts, td = tf.sdft_block_df(tp, T.init_state(tp, channels=C), x)
+    ts, td = tf.sdft_block_df(tp, T.init_state(tp, channels=C, device="cpu"), x)
     got = _df64(td)
     assert got.shape == (C, M, 96, 2) and tuple(ts.offset.shape) == (C,)
     assert _rel(got, d64) < 1e-13 and _rel(got, _df64(jd)) < 1e-13
@@ -152,7 +152,7 @@ def test_extended_tier_drift_free_long_stream():
     tp = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
     x = _signal(nb * M, seed=4)
     _, d64 = J.sdft(p64, J.init_state(p64), x.astype(np.float64))
-    ts = T.init_state(tp)
+    ts = T.init_state(tp, device="cpu")
     errs = []
     for b in range(nb):
         ts, td = tf.sdft_block_df(tp, ts, x[b * M:(b + 1) * M])
@@ -168,14 +168,14 @@ def test_extended_tier_isdft_matches_f64(latency):
     x = _signal(M, seed=6)
     _, d64 = j_sdft_block(p64, J.init_state(p64), x.astype(np.float64))
     _, jd = jtf.sdft_block_df(jp, J.init_state(jp), x)
-    _, td = tf.sdft_block_df(tp, T.init_state(tp), x)
+    _, td = tf.sdft_block_df(tp, T.init_state(tp, device="cpu"), x)
     y64 = np.asarray(j_isdft_block(p64, d64))
     got = tf.df_to_float64(tf.isdft_block_df(tp, td))
     assert _rel(got, y64) < 1e-13
     assert _rel(got, tf.df_to_float64(jtf.isdft_block_df(jp, jd))) < 1e-13
     # through the public API: correctly rounded float32 samples out
     jx, tx = _plans(m, precision=XF, window="hann", latency=latency)
-    _, d = T.sdft(tx, T.init_state(tx), x)
+    _, d = T.sdft(tx, T.init_state(tx, device="cpu"), x)
     y = T.isdft(tx, d)
     assert y.dtype == torch.float32
     np.testing.assert_allclose(_np(y), y64.astype(np.float32),
@@ -190,7 +190,7 @@ def test_extended_tier_api_routing():
     (packed only) and isdft to its synthesis leg; the shapes are checked."""
     jp, tp = _plans(64, precision=XF, window="hann")
     assert tp.precision.extended and tp.precision.fd_dtype == torch.float32
-    st = T.init_state(tp)
+    st = T.init_state(tp, device="cpu")
     assert st.accumulator.dtype == torch.float32
     x = _signal(128, seed=5)
     st, d = T.sdft(tp, st, x)
@@ -202,14 +202,14 @@ def test_extended_tier_api_routing():
     assert _rel(_df64(d), _df64(jd)) < 1e-13
     # a (C, M) batch runs one block per channel
     xc = np.stack([x, _signal(128, seed=9)])
-    sc, dc = T.sdft(tp, T.init_state(tp, channels=2), xc)
+    sc, dc = T.sdft(tp, T.init_state(tp, channels=2, device="cpu"), xc)
     assert tuple(dc.shape) == (2, 128, 64, 2, 2)
     assert torch.equal(dc[0], d) and torch.equal(sc.accumulator[0], st.accumulator)
     for kw in ({"layout": "planar"}, {"layout": "planar", "spectra_dtype": "bfloat16"}):
         with pytest.raises(ValueError, match="packed"):
-            T.sdft(tp, T.init_state(tp), x, **kw)
+            T.sdft(tp, T.init_state(tp, device="cpu"), x, **kw)
     with pytest.raises(ValueError, match="spectra_dtype"):
-        T.sdft(tp, T.init_state(tp), x, spectra_dtype="bfloat16")
+        T.sdft(tp, T.init_state(tp, device="cpu"), x, spectra_dtype="bfloat16")
     for bad in (d[..., 0], d[0], torch.zeros(2, 3, 4, 8, 64, 2, 2)):
         with pytest.raises(ValueError, match=r"\(hi, lo\)"):
             T.isdft(tp, bad)
@@ -229,11 +229,11 @@ def test_extended_plan_runs_every_entry_point_as_float32():
     xc = _signal(2 * 256, seed=13).reshape(2, 256)
 
     _, jp_pow = J.sdft_power(jp, J.init_state(jp), x)
-    _, tp_pow = T.sdft_power(tp, T.init_state(tp), x)
+    _, tp_pow = T.sdft_power(tp, T.init_state(tp, device="cpu"), x)
     np.testing.assert_allclose(_np(tp_pow), np.asarray(jp_pow), atol=2e-6, rtol=1e-4)
 
     js, jy = J.roundtrip(jp, J.init_state(jp), x)
-    ts, ty = T.roundtrip(tp, T.init_state(tp), x)
+    ts, ty = T.roundtrip(tp, T.init_state(tp, device="cpu"), x)
     assert ty.dtype == torch.float32
     np.testing.assert_allclose(_np(ty), np.asarray(jy), atol=1e-5)
     np.testing.assert_allclose(_np(ts.accumulator), np.asarray(js.accumulator), atol=acc_tol)
@@ -245,15 +245,15 @@ def test_extended_plan_runs_every_entry_point_as_float32():
         return z * (torch.arange(z.shape[-1]) < 16)
 
     _, jy = J.roundtrip(jp, J.init_state(jp), x, lowpass)
-    _, ty = T.roundtrip(tp, T.init_state(tp), x, lowpass_t)
+    _, ty = T.roundtrip(tp, T.init_state(tp, device="cpu"), x, lowpass_t)
     np.testing.assert_allclose(_np(ty), np.asarray(jy), atol=1e-5)
 
     _, jh = J.sdft_hopped(jp, J.init_state(jp), x, 8)
-    _, th = T.sdft_hopped(tp, T.init_state(tp), x, 8)
+    _, th = T.sdft_hopped(tp, T.init_state(tp, device="cpu"), x, 8)
     np.testing.assert_allclose(_np(th), np.asarray(jh), atol=2e-7)
 
     js, jhd, jys = J.roundtrip_hopped(jp, J.init_state(jp), xs, 8)
-    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp), xs, 8)
+    ts, thd, tys = T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), xs, 8)
     np.testing.assert_allclose(_np(thd), np.asarray(jhd), atol=2e-7)
     np.testing.assert_allclose(_np(tys), np.asarray(jys), atol=1e-4)
 
@@ -262,7 +262,7 @@ def test_extended_plan_runs_every_entry_point_as_float32():
 
     # interleaved: (M, C) frames in, the double-word spectra of sdft out
     _, jd = J.sdft_interleaved(jp, J.init_state(jp, channels=2), xc.T)
-    _, td = T.sdft_interleaved(tp, T.init_state(tp, channels=2), xc.T)
+    _, td = T.sdft_interleaved(tp, T.init_state(tp, channels=2, device="cpu"), xc.T)
     assert tuple(td.shape) == (2, 256, 64, 2, 2)
     assert _rel(_df64(td), _df64(jd)) < 1e-13
     jyi = np.asarray(J.isdft_interleaved(jp, jd))
