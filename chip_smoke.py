@@ -2,6 +2,12 @@
 """Drive the PyTorch/CUDA port's main path once on one GPU and check it.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --cards 4   # the sharded programs over 4 cards
+
+The second form runs only the sharded programs, one NCCL rank per card,
+on the meshes of ``CARD_MESHES`` against float64 and the unsharded call,
+times the flagship spectra on 4 cards beside one, and runs the CLI's
+``--mesh 1x4x1`` under torchrun against the one-card CLI.  The first form:
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -35,7 +41,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
                4096 on two chained blocks of 8192; ``SDFT`` on the card
                against the CPU; ``STFT`` against numpy framing and
                ``np.fft.rfft``, and its WOLA interior.  K1 and K2 must
-               have been launched.
+               have been launched;
+     d. sharded the seven programs of ``sdft_tpu_torch.parallel`` on a
+               one-rank NCCL mesh (1x1x1) of a process group of their own:
+               ``sharded_sdft_pallas`` (K1 per time shard) at m = 4096 on
+               1 x 65536 planar f32 and on 8 x 32768 (peak memory gated);
+               ``sharded_sdft``, dispatching to K1 and forced onto the
+               scan form (1 x 16384); ``sharded_roundtrip`` (collapsed)
+               and ``sharded_isdft``; ``sharded_roundtrip_hopped`` and
+               ``sharded_sdft_hopped`` at m = 1000, hop = 100 (8 blocks of
+               16000); ``sharded_roundtrip_pallas`` (K2 per time shard) over
+               4 chained blocks of 8000, run twice and held bit for bit;
+               the CLI with ``--mesh 1x1x1 --fd32``.  Each is held against
+               its unsharded counterpart and float64.  K1 must have been
+               launched by ``sharded_sdft_pallas`` and K2 by
+               ``sharded_roundtrip_pallas``.
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
                inputs, at the main path's shapes;
@@ -57,7 +77,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                transform (device-bound), and ``run_hopped`` against its
                per-block loop (host clock, in turns, median and range);
                the float32x2 tier's two legs beside float64 ``ops``, with
-               their peak device memory.
+               their peak device memory; each sharded program of part d
+               beside its unsharded call (wall, device, idle share, in
+               turns), and the flagship K1 program's device time by
+               kernel.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Inputs are made from a fixed seed.
@@ -223,10 +246,11 @@ def main_path(T, dev) -> dict:
 
 def driver_path(T, dev) -> dict:
     """Phase 3b: the collapsed round trip, the driver protocol at hop > 1,
-    the hopped analysis, the CLI and the probes of K1's parts."""
+    the hopped analysis, the CLI and the probes of K1's parts.  The CLI's
+    outputs come back under "cli" ({tag: (wav samples, .dft)})."""
     from sdft_tpu_torch import cli, profiling
     from sdft_tpu_torch.io.dump import load_complex
-    from sdft_tpu_torch.io.wav import read_wav, write_wav
+    from sdft_tpu_torch.io.wav import read_wav
 
     errs = {}
     # -- roundtrip without a transform at the flagship size: two chained
@@ -279,10 +303,8 @@ def driver_path(T, dev) -> dict:
 
     # -- the CLI, in-process on the card: float64, then --fd32 held against
     # it at the driver's gates
-    rng = np.random.default_rng(SEED + 12)
     with tempfile.TemporaryDirectory() as tmp:
-        src = f"{tmp}/src.wav"
-        write_wav(src, (rng.standard_normal(8 * 44100).clip(-3, 3) / 3), 44100)
+        src = cli_wav(tmp)
         outs = {}
         for tag, extra in (("f64", []), ("fd32", ["--fd32"])):
             args = ["1000", "100", "hann", "1", src, f"{tmp}/{tag}.wav", f"{tmp}/{tag}.dft"]
@@ -294,6 +316,7 @@ def driver_path(T, dev) -> dict:
         raise AssertionError(f"cli output shapes {d64.shape} {y64.shape}")
     gate("cli --fd32 vs float64 .dft (abs)", float(np.abs(d32 - d64).max()), 2e-7)
     gate("cli --fd32 vs float64 wav (abs)", float(np.abs(y32 - y64).max()), 1e-4)
+    errs["cli"] = outs
 
     # -- the probes of K1's parts at the script's shapes, 512 tiles (2 GiB
     # stored per call, as K1's flagship block)
@@ -304,6 +327,16 @@ def driver_path(T, dev) -> dict:
         if not r["finite"]:
             raise AssertionError(f"kernel_parts {v}: output not finite")
     return errs
+
+
+def cli_wav(tmp: str) -> str:
+    """The CLI's input: 8 s of seeded noise at 44100 Hz, 24-bit."""
+    from sdft_tpu_torch.io.wav import write_wav
+
+    src = f"{tmp}/src.wav"
+    rng = np.random.default_rng(SEED + 12)
+    write_wav(src, (rng.standard_normal(8 * 44100).clip(-3, 3) / 3), 44100)
+    return src
 
 
 def probe_bounds(P, nt: int = 512) -> dict:
@@ -376,9 +409,16 @@ def kernels_vs_plain(T, S, Q, dev) -> dict:
     dk, yk = Q.launch_scan(plan, pro, synth, "packed")
     dr, yr = Q.forward_and_y_reference(plan, pro, synth, "packed")
     gate("K2 spectra vs plain (abs)", maxerr(dk, dr), 2e-6)
-    # y: atomics sum the blocks' partial rows in a run-dependent order
+    # y: the chunks' partial rows are added in another order than the plain
+    # version's matmul
     gate("K2 y vs plain (abs)", maxerr(yk, yr), 1e-5)
     out["scan"] = maxerr(dk, dr)
+    # the repaired reduction: two launches on the same inputs, bit for bit
+    again = Q.launch_scan(plan, pro, synth, "packed")
+    same = torch.equal(again[0], dk) and torch.equal(again[1], yk)
+    print(f"  K2 two launches on the same inputs bit-identical: {same}", flush=True)
+    if not same:
+        raise AssertionError("K2 is not deterministic")
     return out
 
 
@@ -398,23 +438,40 @@ def wall_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps: int, warmup: int = 2) -> float:
+def device_ms(fn, reps: int, warmup: int = 2, attempts: int = 4) -> float:
     """Device time per call: the summed durations of the kernels and copies
     the calls ran on the card (torch.profiler), so the host's gaps between
-    launches do not count."""
-    from torch.profiler import ProfilerActivity, profile
+    launches do not count.  The warm-up calls run inside the profiler, as
+    its own warm-up step, with the card idle for 20 ms on either side of
+    the step boundary: with the tracer started only around the timed calls,
+    a run of 10 K1 launches has read 0.8 of the kernel's time (its form at
+    110 % of the HBM bound), and kernels next to the boundary have been
+    counted on the wrong side of it.  Only recorded time is reported: a
+    measurement in which some kernel's count is not a multiple of ``reps``
+    (an event lost or misplaced) is taken again, and after ``attempts``
+    such measurements this raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    if us <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return us / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for calls in (max(1, warmup), reps):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+                prof.step()
+                time.sleep(0.02)
+        events = [e for e in prof.key_averages()
+                  if e.count > 0 and e.self_device_time_total > 0]
+        odd = [f"{e.key[:40]} x{e.count}" for e in events if e.count % reps]
+        if not events:
+            raise RuntimeError("the profiler saw no device time")
+        if not odd:
+            return sum(e.self_device_time_total for e in events) / reps / 1e3
+        print(f"  (profiler counts not a multiple of {reps} calls, measuring again: "
+              f"{'; '.join(odd)})", flush=True)
+    raise RuntimeError(f"the profiler lost or misplaced events in {attempts} measurements")
 
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32
@@ -713,8 +770,7 @@ def stream_path(T, dev) -> dict:
 
     # run_hopped against one direct roundtrip_hopped call on the same blocks
     hplan = T.Plan(HOP_M, window="hann", precision=T.FAST_PRECISION)
-    for hop, B, nb, chain, d_lim, y_lim in ((100, HOP100_BLOCK, 8, 8, 1e-7, 1e-6),
-                                            (1, HOP1_BLOCK, 4, 4, 1e-6, 1e-5)):
+    for hop, B, nb, chain in ((100, HOP100_BLOCK, 8, 8), (1, HOP1_BLOCK, 4, 4)):
         xs = host_signal(nb * B, SEED + 22 + hop).reshape(nb, B)
         got = list(T.Streamer(hplan, refresh_every=1, device=dev).run_hopped(
             list(xs), hop, chain=chain))
@@ -723,10 +779,10 @@ def stream_path(T, dev) -> dict:
         hd, ys = hd.cpu().numpy(), ys.cpu().numpy()
         e_d = max(host_err(g[0], w) for g, w in zip(got, hd))
         e_y = max(host_err(g[1], w) for g, w in zip(got, ys))
-        # hop = 1 runs K2, whose y atomics sum in a run-dependent order
+        # hop = 1 runs K2, which adds y in a fixed order: the same gates
         gate(f"Streamer.run_hopped(hop={hop}) m={HOP_M} {nb} x {B} spectra vs "
-             "roundtrip_hopped (abs)", e_d, d_lim)
-        gate(f"Streamer.run_hopped(hop={hop}) samples vs roundtrip_hopped (abs)", e_y, y_lim)
+             "roundtrip_hopped (abs)", e_d, 1e-7)
+        gate(f"Streamer.run_hopped(hop={hop}) samples vs roundtrip_hopped (abs)", e_y, 1e-6)
         errs[f"stream_hop{hop}_abs"] = (e_d, e_y)
 
     # the float32x2 tier: two chained blocks against float64 (the hard gate
@@ -911,6 +967,534 @@ def stream_timings(T, dev, card: str, k1_ms: float) -> dict:
     return res
 
 
+#: shapes of part d, the sharded programs on a one-rank mesh
+SHARD_M, SHARD_BLOCK, SHARD_BATCH = 4096, 65536, (8, 32768)
+SHARD_SCAN_BLOCK, SHARD_F64_CHUNK = 16384, 16384
+SHARD_HOP_M, SHARD_HOP, SHARD_HOP_BLOCK, SHARD_HOP_BLOCKS = 1000, 100, 16000, 8
+SHARD_Y_BLOCK, SHARD_Y_BLOCKS = 8000, 4
+
+
+class Launches:
+    """K1 and K2 launches made inside each sharded program's calls."""
+
+    def __init__(self, S, Q):
+        self.S, self.Q, self.by = S, Q, {}
+
+    def __call__(self, program: str, fn):
+        k1, k2 = self.S.LAUNCHES, self.Q.LAUNCHES
+        out = fn()
+        n = self.by.setdefault(program, [0, 0])
+        n[0] += self.S.LAUNCHES - k1
+        n[1] += self.Q.LAUNCHES - k2
+        return out
+
+
+def f64_chunks(T, plan, x, chunk: int):
+    """The float64 ``ops`` spectra of a (M,) block, chunk by chunk on one
+    carried state (chunking invariance): yields (start, packed f64 spectra,
+    isdft of them)."""
+    p64 = f64(plan)
+    st = T.init_state(p64, device=x.device)
+    for i in range(0, x.numel(), chunk):
+        st, d = T.sdft(p64, st, x[i:i + chunk])
+        yield i, d, T.isdft(p64, d)
+        del d
+
+
+def timed_pair(name: str, sharded, unsharded, reps: int, card: str) -> dict:
+    """Wall (CUDA events), device (profiler), the device's idle share and
+    the peak memory above the inputs of a sharded program beside its
+    unsharded counterpart, in turns."""
+    res = {}
+    for who, fn in (("unsharded", unsharded), ("sharded", sharded),
+                    ("sharded", sharded), ("unsharded", unsharded)):
+        w, d = wall_ms(fn, reps, 1), device_ms(fn, reps, 1)
+        res.setdefault(who, []).append((w, d))
+    out = {}
+    for who, vals in res.items():
+        w = min(v[0] for v in vals)
+        d = min(v[1] for v in vals)
+        peak = peak_gib(sharded if who == "sharded" else unsharded)
+        out[who] = (w, d, peak)
+        print(f"timing: {name} {who}: wall {'/'.join(f'{v[0]:.4f}' for v in vals)} ms, "
+              f"device {'/'.join(f'{v[1]:.4f}' for v in vals)} ms, idle "
+              f"{max(0.0, 1 - d / w):.1%} (best of turns), peak {peak:.3f} GiB above the "
+              f"inputs [{card}]", flush=True)
+    return out
+
+
+def top_kernels(fn, n: int = 8) -> str:
+    """The n kernels and copies of one call that took the most device time
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in ev)
+    return f"total {total / 1e3:.4f} ms: " + "; ".join(
+        f"{e.key[:48]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}" for e in ev[:n])
+
+
+def peak_gib(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 2**30
+
+
+def sharded_path(T, S, Q, dev, card: str, cli_ref: dict, mesh) -> tuple:
+    """Part d: the seven sharded programs and the CLI's --mesh on a one-rank
+    NCCL mesh (the card's only rank: NCCL puts no two ranks on one card),
+    each gated against its unsharded counterpart or float64 ``ops`` at the
+    gates of PERF.md section 2.  Returns (errors, timing jobs for
+    ``sharded_timings``: {key: (name, sharded call, unsharded call,
+    repetitions)}, launches of K1 and K2 by program)."""
+    from sdft_tpu_torch import cli
+    from sdft_tpu_torch import parallel as par
+    from sdft_tpu_torch.io.dump import load_complex
+    from sdft_tpu_torch.io.wav import read_wav
+    from sdft_tpu_torch.ops.analysis import sdft_block
+
+    errs, jobs = {}, {}
+    count = Launches(S, Q)
+    eps32 = float(np.finfo(np.float32).eps)
+
+    # -- K1 per time shard, the flagship block: sharded_sdft_pallas
+    # against float64 ops chunk by chunk, and against sdft
+    m, M = SHARD_M, SHARD_BLOCK
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    x = signal(M, SEED + 50, dev)
+    st0 = T.init_state(plan, channels=1, device=dev)
+    st, (re, im) = count("sharded_sdft_pallas", lambda: par.sharded_sdft_pallas(
+        plan, mesh, st0, x[None], layout="planar"))
+    re, im = re.to_local()[0], im.to_local()[0]
+    _, (ure, uim) = T.sdft(plan, T.init_state(plan, device=dev), x, "planar")
+    e = scale = eu = 0.0
+    for i, d64, _ in f64_chunks(T, plan, x, SHARD_F64_CHUNK):
+        n = d64.shape[0]
+        want = torch.complex(d64[..., 0], d64[..., 1])
+        scale = max(scale, want.abs().max().item())
+        e = max(e, (planar_complex(re[i:i + n], im[i:i + n]) - want).abs().max().item())
+        eu = max(eu, (planar_complex(re[i:i + n], im[i:i + n])
+                      - planar_complex(ure[i:i + n], uim[i:i + n])).abs().max().item())
+        del want
+    gate(f"sharded_sdft_pallas 1x{M} m={m} planar f32 vs f64 / scale", e / scale, 3e-6)
+    gate("sharded_sdft_pallas vs sdft (unsharded K1) / scale", eu / scale, 3e-6)
+    errs["shard_k1_rel"] = e / scale
+    st64, _ = T.sdft(f64(plan), T.init_state(f64(plan), device=dev), x)
+    acc = st.accumulator.to_local()[0]
+    gate("sharded_sdft_pallas end accumulator (refresh identity) vs f64",
+         maxerr(acc, st64.accumulator), 4 * eps32 * M)
+    if int(st.offset.to_local()[0]) != int(st64.offset):
+        raise AssertionError("sharded_sdft_pallas offset mismatch")
+    del re, im, ure, uim, st64
+    jobs["shard_k1"] = (
+        f"sharded_sdft_pallas planar f32 m={m} 1x{M} vs sdft",
+        lambda plan=plan, x=x: par.sharded_sdft_pallas(plan, mesh, st0, x[None],
+                                                       layout="planar"),
+        lambda plan=plan, x=x: T.sdft(plan, T.init_state(plan, device=dev), x, "planar"), 5)
+
+    # -- the 8 x 32768 batch: one K1 launch per channel, in place
+    C, Mb = SHARD_BATCH
+    xb = signal(C * Mb, SEED + 51, dev).reshape(C, Mb)
+    stb = T.init_state(plan, channels=C, device=dev)
+    peak = peak_gib(lambda: count("sharded_sdft_pallas", lambda: par.sharded_sdft_pallas(
+        plan, mesh, stb, xb, layout="planar")))
+    _, (re, im) = par.sharded_sdft_pallas(plan, mesh, stb, xb, layout="planar")
+    re, im = re.to_local(), im.to_local()
+    _, (ure, uim) = T.sdft(plan, stb, xb, "planar")
+    eu = scale = 0.0
+    for c in range(C):
+        u = planar_complex(ure[c], uim[c])
+        scale = max(scale, u.abs().max().item())
+        eu = max(eu, (planar_complex(re[c], im[c]) - u).abs().max().item())
+        del u
+    gate(f"sharded_sdft_pallas {C}x{Mb} vs sdft (unsharded K1) / scale", eu / scale, 3e-6)
+    spectra = 2 * C * Mb * m * 4 / 2**30
+    print(f"  sharded_sdft_pallas {C}x{Mb} peak {peak:.3f} GiB above the inputs for "
+          f"{spectra:.1f} GiB of spectra [{card}]", flush=True)
+    if peak > 1.25 * spectra:
+        raise AssertionError(f"sharded batch peak {peak:.2f} GiB: spectra copied")
+    del re, im, ure, uim
+    jobs["shard_k1_batch"] = (
+        f"sharded_sdft_pallas planar f32 m={m} {C}x{Mb} vs sdft",
+        lambda plan=plan: par.sharded_sdft_pallas(plan, mesh, stb, xb, layout="planar"),
+        lambda plan=plan: T.sdft(plan, stb, xb, "planar"), 3)
+    errs["shard_k1_batch_peak_gib"] = peak
+
+    # -- sharded_sdft: the default dispatches to K1 on the card; the
+    # scan form forced off the kernel against float64
+    xs = x[:SHARD_SCAN_BLOCK]
+    k1_before = S.LAUNCHES
+    _, auto = count("sharded_sdft", lambda: par.sharded_sdft(plan, mesh, st0, xs[None]))
+    if S.LAUNCHES == k1_before:
+        raise AssertionError("sharded_sdft did not dispatch to K1 on the card")
+    _, scan = par.sharded_sdft(plan, mesh, st0, xs[None], use_pallas=False)
+    _, ops32 = sdft_block(plan, T.init_state(plan, device=dev), xs)
+    _, d64, _ = next(f64_chunks(T, plan, xs, SHARD_SCAN_BLOCK))
+    scale = d64.abs().max().item()
+    # the scan form's unsharded counterpart is the float32 ops path: both
+    # run a complex64 running sum over the whole block, with no exact
+    # per-tile carry, so the form is held to ops float32's own error on
+    # the same input, not to K1's 3e-6 (both read 3.3-3.4e-6 here)
+    e_ops = maxerr(ops32, d64) / scale
+    e_scan = maxerr(scan.to_local()[0], d64) / scale
+    print(f"  ops float32 (unsharded) vs f64 / scale {e_ops:.3e}", flush=True)
+    gate(f"sharded_sdft scan form m={m} 1x{xs.numel()} vs ops float32 (unsharded) / scale",
+         maxerr(scan.to_local()[0], ops32) / scale, 2e-6)
+    gate("sharded_sdft scan form vs f64 / scale, limit 1.5 x ops float32's", e_scan,
+         1.5 * e_ops)
+    gate("sharded_sdft (K1 dispatch) vs f64 / scale",
+         maxerr(auto.to_local()[0], d64) / scale, 3e-6)
+    errs["shard_scan_rel"], errs["ops32_rel"] = e_scan, e_ops
+    del auto, scan, d64, ops32
+    jobs["shard_scan"] = (
+        f"sharded_sdft scan form m={m} 1x{xs.numel()} vs ops float32",
+        lambda plan=plan, xs=xs: par.sharded_sdft(plan, mesh, st0, xs[None], use_pallas=False),
+        lambda plan=plan, xs=xs: sdft_block(plan, T.init_state(plan, device=dev), xs), 3)
+
+    # -- sharded_roundtrip (collapsed) and sharded_isdft against
+    # float64 sdft + isdft
+    st, y = par.sharded_roundtrip(plan, mesh, st0, x[None])
+    y = y.to_local()[0]
+    _, yu = T.roundtrip(plan, T.init_state(plan, device=dev), x)
+    e = 0.0
+    for i, d64, y64 in f64_chunks(T, plan, x, SHARD_F64_CHUNK):
+        e = max(e, maxerr(y[i:i + y64.numel()], y64))
+        if i == 0:
+            yi = par.sharded_isdft(plan, mesh, d64[None].float()).to_local()[0]
+            gate("sharded_isdft of f64 spectra (as f32) vs f64 isdft (abs)",
+                 maxerr(yi, y64), 1e-4)
+    gate(f"sharded_roundtrip (collapsed) m={m} 1x{M} vs f64 sdft+isdft (abs)", e, 2e-5)
+    gate("sharded_roundtrip vs roundtrip (unsharded) (abs)", maxerr(y, yu), 2e-5)
+    errs["shard_lti_abs"] = e
+    stk, _ = T.sdft(plan, T.init_state(plan, device=dev), x)
+    gate("sharded_roundtrip state vs sdft state, accumulator (abs)",
+         maxerr(st.accumulator.to_local()[0], stk.accumulator), 1e-3)
+    jobs["shard_lti"] = (
+        f"sharded_roundtrip (collapsed) m={m} 1x{M} vs roundtrip",
+        lambda plan=plan, x=x: par.sharded_roundtrip(plan, mesh, st0, x[None]),
+        lambda plan=plan, x=x: T.roundtrip(plan, T.init_state(plan, device=dev), x), 10)
+
+    # -- the driver protocol at hop = 100: sharded_roundtrip_hopped,
+    # and sharded_sdft_hopped, against float64 and the unsharded call
+    m, hop, B, nb = SHARD_HOP_M, SHARD_HOP, SHARD_HOP_BLOCK, SHARD_HOP_BLOCKS
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    p64 = f64(plan)
+    xs = signal(nb * B, SEED + 52, dev).reshape(nb, 1, B)
+    sth = T.init_state(plan, channels=1, device=dev)
+    _, hd, ys = par.sharded_roundtrip_hopped(plan, mesh, sth, xs, hop)
+    hd, ys = hd.to_local(), ys.to_local()
+    _, hdu, ysu = T.roundtrip_hopped(plan, sth, xs, hop)
+    _, d64 = T.sdft(p64, T.init_state(p64, device=dev), xs.reshape(-1))
+    e_d = maxerr(hd.reshape(-1, m, 2), d64[::hop])
+    e_y = maxerr(ys.reshape(-1), T.isdft(p64, d64))
+    gate(f"sharded_roundtrip_hopped(hop={hop}) m={m} {nb}x{B} spectra vs f64 (abs)",
+         e_d, 2e-7)
+    gate(f"sharded_roundtrip_hopped(hop={hop}) samples vs f64 (abs)", e_y, 1e-4)
+    gate("sharded_roundtrip_hopped vs roundtrip_hopped, spectra (abs)",
+         maxerr(hd, hdu), 1e-7)
+    gate("sharded_roundtrip_hopped vs roundtrip_hopped, samples (abs)",
+         maxerr(ys, ysu), 1e-6)
+    errs["shard_hop100_abs"] = (e_d, e_y)
+    _, hs = par.sharded_sdft_hopped(plan, mesh, sth, xs.reshape(1, -1), hop)
+    gate(f"sharded_sdft_hopped(hop={hop}) vs f64 (abs)",
+         maxerr(hs.to_local()[0], d64[::hop]), 1e-7)
+    del d64
+    jobs["shard_hop100"] = (
+        f"sharded_roundtrip_hopped(hop={hop}) m={m} {nb}x{B} vs roundtrip_hopped",
+        lambda plan=plan, xs=xs: par.sharded_roundtrip_hopped(plan, mesh, sth, xs, hop),
+        lambda plan=plan, xs=xs: T.roundtrip_hopped(plan, sth, xs, hop), 3)
+
+    # -- K2 per time shard: sharded_roundtrip_pallas over chained
+    # blocks, against roundtrip_hopped(hop=1) and float64; run twice,
+    # bit for bit
+    B, nb = SHARD_Y_BLOCK, SHARD_Y_BLOCKS
+    xs = signal(nb * B, SEED + 53, dev).reshape(nb, 1, B)
+
+    def chain():
+        st, ds, ys = sth, [], []
+        for b in range(nb):
+            st, d, y = par.sharded_roundtrip_pallas(plan, mesh, st, xs[b])
+            ds.append(d.to_local())
+            ys.append(y.to_local())
+        return st, torch.stack(ds), torch.stack(ys)
+
+    st1, d1, y1 = count("sharded_roundtrip_pallas", chain)
+    _, d2, y2 = count("sharded_roundtrip_pallas", chain)
+    same = torch.equal(d1, d2) and torch.equal(y1, y2)
+    print(f"  sharded_roundtrip_pallas run twice bit-identical: {same}", flush=True)
+    if not same:
+        raise AssertionError("sharded_roundtrip_pallas does not repeat itself")
+    _, hdu, ysu = T.roundtrip_hopped(plan, sth, xs, 1, refresh_every=1)
+    _, hd64, ys64 = T.roundtrip_hopped(p64, T.init_state(p64, channels=1, device=dev),
+                                       xs, 1, refresh_every=1)
+    scale = hd64.abs().max().item()
+    gate(f"sharded_roundtrip_pallas m={m} {nb}x{B} spectra vs f64 / scale",
+         maxerr(d1, hd64) / scale, 1.5e-5)
+    gate("sharded_roundtrip_pallas samples vs f64 (abs)", maxerr(y1, ys64), 1e-4)
+    gate("sharded_roundtrip_pallas vs roundtrip_hopped(hop=1), spectra (abs)",
+         maxerr(d1, hdu), 1e-7)
+    gate("sharded_roundtrip_pallas vs roundtrip_hopped(hop=1), samples (abs)",
+         maxerr(y1, ysu), 1e-6)
+    print(f"  sharded_roundtrip_pallas equals roundtrip_hopped(hop=1) bit for bit: "
+          f"{torch.equal(d1, hdu) and torch.equal(y1, ysu)}", flush=True)
+    errs["shard_hop1_rel"] = maxerr(d1, hd64) / scale
+    del d1, d2, hdu, hd64
+    jobs["shard_k2"] = (
+        f"sharded_roundtrip_pallas m={m} {nb}x{B} vs roundtrip_hopped(hop=1)",
+        chain, lambda plan=plan, xs=xs: T.roundtrip_hopped(plan, sth, xs, 1, refresh_every=1),
+        3)
+
+    # -- the CLI's --mesh 1x1x1 --fd32 against the float64 CLI of
+    # part b on the same WAV
+    with tempfile.TemporaryDirectory() as tmp2:
+        src = cli_wav(tmp2)
+        args = ["1000", "100", "hann", "1", src, f"{tmp2}/m.wav", f"{tmp2}/m.dft",
+                "--fd32", "--mesh", "1x1x1"]
+        t0 = time.perf_counter()
+        if cli.main(args) != 0:
+            raise AssertionError("cli --mesh 1x1x1 failed")
+        t_cli = time.perf_counter() - t0
+        ym, dm = read_wav(f"{tmp2}/m.wav")[0], load_complex(f"{tmp2}/m.dft", 1000)
+    (y64, dd64), (y32, d32) = cli_ref["f64"], cli_ref["fd32"]
+    if dm.shape != dd64.shape or ym.shape != y64.shape:
+        raise AssertionError(f"cli --mesh shapes {dm.shape} {ym.shape}")
+    gate("cli --mesh 1x1x1 --fd32 vs float64 .dft (abs)", float(np.abs(dm - dd64).max()),
+         2e-7)
+    gate("cli --mesh 1x1x1 --fd32 vs float64 wav (abs)", float(np.abs(ym - y64).max()),
+         1e-4)
+    print(f"  cli --mesh 1x1x1 --fd32 vs the single-device --fd32: .dft "
+          f"{np.abs(dm - d32).max():.3e}, wav {np.abs(ym - y32).max():.3e}; "
+          f"{t_cli:.2f} s host clock [{card}]", flush=True)
+    errs["shard_cli_s"] = t_cli
+    return errs, jobs, count.by
+
+
+def sharded_timings(jobs: dict, card: str) -> dict:
+    """Phase 5, the sharded programs: each beside its unsharded call, in
+    turns, and the flagship K1 program's device time by kernel."""
+    out = {key: timed_pair(name, a, b, reps, card) for key, (name, a, b, reps) in jobs.items()}
+    _, a, b, _ = jobs["shard_k1"]
+    for who, fn in (("sharded_sdft_pallas", a), ("sdft", b)):
+        print(f"timing: device time by kernel, {who} 1x{SHARD_BLOCK}: {top_kernels(fn)} "
+              f"[{card}]", flush=True)
+    return out
+
+
+#: the multi-card check (``--cards 4``): its meshes, and its shapes
+CARD_MESHES = ((1, 4, 1), (1, 2, 2), (1, 1, 4))
+CARD_M, CARD_BLOCK, CARD_HOP, CARD_Y_BLOCK = 1000, 64000, 100, 32000
+CARD_FLAGSHIP_M, CARD_FLAGSHIP_BLOCK = 4096, 65536
+
+
+def _card_rank(rank: int, n: int, init: str):
+    """One rank of the multi-card check: every program on each mesh of
+    CARD_MESHES, gathered whole and held on every rank against the
+    unsharded call on its own card and against float64 (the gates of part
+    d); rank 0 prints."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import sdft_tpu_torch as T
+    from sdft_tpu_torch import parallel as par
+    from sdft_tpu_torch.kernels import scan as Q, spectra as S
+    from sdft_tpu_torch.ops.analysis import sdft_block
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=init, world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=180))
+    dev = torch.device("cuda", rank)
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    def check(name: str, err: float, limit: float) -> None:
+        if rank == 0:
+            gate(name, err, limit)
+        elif not err <= limit:
+            raise AssertionError(f"rank {rank}: {name}: error {err:.3e} exceeds {limit:.3e}")
+
+    m, M, hop = CARD_M, CARD_BLOCK, CARD_HOP
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    p64 = f64(plan)
+    x = signal(M, SEED + 70, dev)
+    st64, d64 = T.sdft(p64, T.init_state(p64, device=dev), x)
+    y64 = T.isdft(p64, d64)
+    scale = d64.abs().max().item()
+    # the scan form (bins > 1) is held to 1.5 x the error of the unsharded
+    # float32 ops path on the same input, as in part d
+    e_ops = maxerr(sdft_block(plan, T.init_state(plan, device=dev), x)[1], d64) / scale
+    say(f"cards: ops float32 (unsharded) vs f64 / scale {e_ops:.3e}", flush=True)
+    st1 = T.init_state(plan, channels=1, device=dev)
+    for axes in CARD_MESHES:
+        mesh = par.make_mesh(*axes)
+        tag = "x".join(map(str, axes))
+        say(f"cards: mesh {tag} over {n} ranks, backend {dist.get_backend()}", flush=True)
+        k1, k2 = S.LAUNCHES, Q.LAUNCHES
+        st, d = par.sharded_sdft(plan, mesh, st1, x[None])
+        d = d.full_tensor()[0]
+        klass = 3e-6 if axes[2] == 1 else 1.5 * e_ops  # K1, or the scan form
+        check(f"[{tag}] sharded_sdft vs f64 / scale", maxerr(d, d64) / scale, klass)
+        check(f"[{tag}] sharded_sdft accumulator vs f64",
+              maxerr(st.accumulator.full_tensor()[0], st64.accumulator), 4e-3)
+        del d
+        _, y = par.sharded_roundtrip(plan, mesh, st1, x[None])
+        check(f"[{tag}] sharded_roundtrip (collapsed) vs f64 sdft+isdft (abs)",
+              maxerr(y.full_tensor()[0], y64), 2e-5)
+        q = M // 4
+        yi = par.sharded_isdft(plan, mesh, d64[None, :q].float()).full_tensor()[0]
+        check(f"[{tag}] sharded_isdft vs f64 (abs)", maxerr(yi, y64[:q]), 1e-4)
+        xs = x.reshape(4, 1, M // 4)
+        _, hd, ys = par.sharded_roundtrip_hopped(plan, mesh, st1, xs, hop)
+        check(f"[{tag}] sharded_roundtrip_hopped(hop={hop}) spectra vs f64 (abs)",
+              maxerr(hd.full_tensor().reshape(-1, m, 2), d64[::hop]), 2e-7)
+        check(f"[{tag}] sharded_roundtrip_hopped samples vs f64 (abs)",
+              maxerr(ys.full_tensor().reshape(-1), y64), 1e-4)
+        _, hs = par.sharded_sdft_hopped(plan, mesh, st1, x[None], hop)
+        check(f"[{tag}] sharded_sdft_hopped(hop={hop}) vs f64 (abs)",
+              maxerr(hs.full_tensor()[0], d64[::hop]), 1e-7)
+        # local blocks shorter than 2m: the comb history is all_gathered
+        short = x[:4 * (m // 2)]
+        _, ysh = par.sharded_roundtrip(plan, mesh, st1, short[None])
+        _, yshu = T.roundtrip(plan, T.init_state(plan, device=dev), short)
+        check(f"[{tag}] sharded_roundtrip, local blocks < 2m, vs roundtrip (abs)",
+              maxerr(ysh.full_tensor()[0], yshu), 2e-5)
+        keep = torch.arange(m, device=dev) < m // 4
+        _, yt = par.sharded_roundtrip(plan, mesh, st1, x[None, :q],
+                                      transform=lambda z, bins: z * (bins < m // 4))
+        _, yt64 = T.roundtrip(p64, T.init_state(p64, device=dev), x[:q],
+                              transform=lambda z: z * keep)
+        check(f"[{tag}] sharded_roundtrip(transform) vs f64 (abs)",
+              maxerr(yt.full_tensor()[0], yt64), 1e-4)
+        if axes[2] == 1:
+            xy = x[:2 * CARD_Y_BLOCK].reshape(2, 1, CARD_Y_BLOCK)
+            runs = []
+            for _ in range(2):
+                st, outs = st1, []
+                for b in range(2):
+                    st, dd, yy = par.sharded_roundtrip_pallas(plan, mesh, st, xy[b])
+                    outs += [dd.full_tensor(), yy.full_tensor()]
+                runs.append(outs)
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"[{tag}] sharded_roundtrip_pallas does not repeat itself")
+            dk = torch.cat(runs[0][0::2], dim=1)[0]
+            yk = torch.cat(runs[0][1::2], dim=1)[0]
+            check(f"[{tag}] sharded_roundtrip_pallas spectra vs f64 / scale",
+                  maxerr(dk, d64[:2 * CARD_Y_BLOCK]) / scale, 1.5e-5)
+            _, _, yh64 = T.roundtrip_hopped(p64, T.init_state(p64, device=dev),
+                                            xy[:, 0], 1, refresh_every=1)
+            check(f"[{tag}] sharded_roundtrip_pallas samples vs f64 (abs)",
+                  maxerr(yk, yh64.reshape(-1)), 1e-4)
+            say(f"  [{tag}] sharded_roundtrip_pallas run twice bit-identical: True", flush=True)
+            del runs, dk
+        launched = (S.LAUNCHES - k1, Q.LAUNCHES - k2)
+        say(f"  [{tag}] rank 0 launches (K1, K2): {launched}", flush=True)
+        if axes[2] == 1 and min(launched) <= 0:
+            raise AssertionError(f"[{tag}] K1 or K2 not launched on a bins=1 mesh")
+    del d64, y64
+
+    # the flagship spectra over the four cards: sharded_sdft_pallas on 1x4x1
+    # beside sdft on one card, for the same 4 x 65536 samples
+    mesh = par.make_mesh(1, n, 1)
+    fplan = T.Plan(CARD_FLAGSHIP_M, window="hann", precision=T.FAST_PRECISION)
+    xf = signal(n * CARD_FLAGSHIP_BLOCK, SEED + 71, dev)
+    stf = T.init_state(fplan, channels=1, device=dev)
+    _, (re, im) = par.sharded_sdft_pallas(fplan, mesh, stf, xf[None], layout="planar")
+    local = planar_complex(re.to_local()[0], im.to_local()[0])
+    lo = rank * CARD_FLAGSHIP_BLOCK
+    _, (ure, uim) = T.sdft(fplan, T.init_state(fplan, device=dev), xf, "planar")
+    u = planar_complex(ure[lo:lo + CARD_FLAGSHIP_BLOCK], uim[lo:lo + CARD_FLAGSHIP_BLOCK])
+    err = torch.tensor([(local - u).abs().max().item() / u.abs().max().item()], device=dev)
+    dist.all_reduce(err, op=dist.ReduceOp.MAX)
+    check(f"[1x{n}x1] sharded_sdft_pallas m={CARD_FLAGSHIP_M} {n}x{CARD_FLAGSHIP_BLOCK} "
+          f"planar f32 vs sdft on one card / scale (worst rank)", err.item(), 3e-6)
+    del re, im, local, ure, uim, u
+
+    def sharded():
+        par.sharded_sdft_pallas(fplan, mesh, stf, xf[None], layout="planar")
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def single():
+        T.sdft(fplan, T.init_state(fplan, device=dev), xf, "planar")
+        torch.cuda.synchronize()
+
+    t = {}
+    for who, fn in (("one card", single), (f"{n} cards", sharded), (f"{n} cards", sharded),
+                    ("one card", single)):
+        fn()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        t.setdefault(who, []).append((time.perf_counter() - t0) / 3 * 1e3)
+    for who, ms in t.items():
+        say(f"timing: {n * CARD_FLAGSHIP_BLOCK} samples at m={CARD_FLAGSHIP_M}, planar f32, "
+            f"{who}: {'/'.join(f'{v:.4f}' for v in ms)} ms per call (host clock, to the last "
+            f"card's end), {n * CARD_FLAGSHIP_BLOCK / min(ms) * 1e3:.4e} samples/s", flush=True)
+    dist.destroy_process_group()
+
+
+def cards_main(n: int) -> int:
+    """``python3 chip_smoke.py --cards N``: the sharded programs over N
+    cards (one NCCL rank each), then the CLI under torchrun against the
+    single-card CLI.  Needs N cards."""
+    import torch.multiprocessing as mp
+
+    card = require_cuda()
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f"--cards {n} needs {n} CUDA devices, found "
+                           f"{torch.cuda.device_count()}")
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {n} x "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    from sdft_tpu_torch.kernels import _build
+
+    _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_card_rank, args=(n, f"file://{tmp}/group"), nprocs=n)
+        src = cli_wav(tmp)
+        args = ["1000", "100", "hann", "1", src]
+        outs = {}
+        for tag, cmd in (
+                ("one card", [sys.executable, "-m", "sdft_tpu_torch"]),
+                (f"torchrun {n} ranks", [sys.executable, "-m", "torch.distributed.run",
+                                         "--standalone", f"--nproc-per-node={n}",
+                                         "-m", "sdft_tpu_torch"])):
+            extra = ["--fd32"] + (["--mesh", f"1x{n}x1"] if "torchrun" in tag else [])
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd + args + [f"{tmp}/{len(outs)}.wav", f"{tmp}/{len(outs)}.dft",
+                                                *extra], capture_output=True, text=True,
+                                  timeout=300, cwd=str(ROOT))
+            if proc.returncode != 0:
+                raise RuntimeError(f"cli {tag} failed:\n{(proc.stdout + proc.stderr)[-3000:]}")
+            from sdft_tpu_torch.io.dump import load_complex
+            from sdft_tpu_torch.io.wav import read_wav
+
+            outs[tag] = (read_wav(f"{tmp}/{len(outs)}.wav")[0],
+                         load_complex(f"{tmp}/{len(outs)}.dft", 1000))
+            print(f"cli {tag}: {time.perf_counter() - t0:.2f} s host clock, process start "
+                  f"included; {proc.stdout.strip().splitlines()[-1]}", flush=True)
+        (y1, d1), (yn, dn) = outs.values()
+        gate(f"cli --mesh 1x{n}x1 --fd32 under torchrun vs one card --fd32, .dft (abs)",
+             float(np.abs(dn - d1).max()), 2e-7)
+        gate(f"cli --mesh 1x{n}x1 --fd32 under torchrun vs one card --fd32, wav (abs)",
+             float(np.abs(yn - y1).max()), 1e-4)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def print_ptxas(log: pathlib.Path) -> None:
     """ptxas's registers and spills of each K1/K2 instantiation (store
     form, vector stores, window halo), from the build log."""
@@ -948,6 +1532,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}", flush=True)
     print_ptxas(lib.with_suffix(".log"))
 
+    def done(part: str) -> None:
+        print(f"elapsed: {part} done {time.perf_counter() - t0:.1f} s after the build began",
+              flush=True)
+
     S.LAUNCHES = Q.LAUNCHES = 0
     errs = main_path(T, dev)
     torch.cuda.synchronize()
@@ -957,9 +1545,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches.update(kparts_make=P.LAUNCHES["make"], kparts_tables=P.LAUNCHES["tables"])
     print(f"main path launches: {launches}", flush=True)
+    done("parts a and b")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    cli_ref = errs.pop("cli")
     S.LAUNCHES = Q.LAUNCHES = 0
     errs.update(stream_path(T, dev))
     torch.cuda.synchronize()
@@ -969,13 +1559,44 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the stream part")
         launches[name] += n
+    done("part c")
+    with tempfile.TemporaryDirectory() as tmp:
+        # a one-rank NCCL group of its own for part d and its timings
+        import torch.distributed as dist
+        from sdft_tpu_torch import parallel as par
+
+        par.multihost.initialize(f"file://{tmp}/group", 1, 0)
+        try:
+            mesh = par.make_mesh(1, 1, 1)
+            print(f"sharded: mesh {mesh}, backend {dist.get_backend()}", flush=True)
+            S.LAUNCHES = Q.LAUNCHES = 0
+            shard_errs, jobs, by_program = sharded_path(T, S, Q, dev, card, cli_ref, mesh)
+            torch.cuda.synchronize()
+            part_d = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+            print(f"sharded part launches: {part_d}; by program (K1, K2): {by_program}",
+                  flush=True)
+            if by_program.get("sharded_sdft_pallas", [0])[0] <= 0:
+                raise AssertionError("sharded_sdft_pallas did not launch K1")
+            if by_program.get("sharded_roundtrip_pallas", [0, 0])[1] <= 0:
+                raise AssertionError("sharded_roundtrip_pallas did not launch K2")
+            for name, n in part_d.items():
+                launches[name] += n
+            errs.update(shard_errs)
+            done("part d")
+            shard_times = sharded_timings(jobs, card)
+            done("part d's timings")
+        finally:
+            dist.destroy_process_group()
 
     vs_plain = kernels_vs_plain(T, S, Q, dev)
     vs_plain.update({f"kparts_{v}": e for v, e in probes_vs_plain(P, dev).items()})
     times = timings(T, S, Q, dev, card)
     times.update(driver_timings(T, P, dev, card, times["k1_planar_float32"][0]))
     times.update(stream_timings(T, dev, card, times["k1_planar_float32"][0]))
+    done("phases 4 and 5")
     print(f"main path errors: {json.dumps(errs)}", flush=True)
+    print(f"sharded timings (wall ms, device ms, peak GiB): {json.dumps(shard_times)}",
+          flush=True)
     print(f"TF32 after the run: matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
@@ -988,12 +1609,14 @@ def main() -> int:
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:509",
          "launches": launches["spectra"], "max_abs_err": vs_plain["spectra"],
          "ms": k1[0], "plain_ms": k1[1], "bound_ms": k1[2], "bound_by": k1[3],
-         "library_ms": times["k1_library"]},
+         "library_ms": times["k1_library"],
+         "sharded_by": {p: n[0] for p, n in by_program.items() if n[0]}},
         {"name": "scan", "route": "cuda", "source": src + "scan.cu",
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:147",
          "launches": launches["scan"], "max_abs_err": vs_plain["scan"],
          "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2], "bound_by": k2[3],
-         "library_ms": None},
+         "library_ms": None,
+         "sharded_by": {p: n[1] for p, n in by_program.items() if n[1]}},
         {"name": "kparts_make", "route": "cuda", "source": src + "kparts.cu",
          "replaces": "scripts/archive/exp_kparts.py:41",
          "launches": launches["kparts_make"], "max_abs_err": vs_plain["kparts_full"],
@@ -1013,4 +1636,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_main(int(sys.argv[2])))
     sys.exit(main())

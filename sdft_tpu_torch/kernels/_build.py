@@ -35,7 +35,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sdft_spectra_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _F, _F, _F, _I, _I, _I, _I, _P),
-    "sdft_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "sdft_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _I, _F, _I, _I, _P),
     "sdft_kparts_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _I, _P),

@@ -298,9 +298,10 @@ __device__ __forceinline__ bool source_bin(const TileArgs& a, int p, int& s, boo
 __device__ __forceinline__ int table_row(int r, int nc) { return r < nc ? r * FINE : r - nc + 1; }
 
 // The body both kernels run.  With EMIT_Y, every row's spectrum is also
-// reduced against the synthesis row: y[k] += y_scale * sum_i
-// (Re out[k,i] * Re s[i] - Im out[k,i] * Im s[i]), one atomicAdd per row
-// and warp.
+// reduced against the synthesis row over the warp's chunk of bins:
+// y[chunk * M + k] = y_scale * sum_{i in chunk} (Re out[k,i] * Re s[i] -
+// Im out[k,i] * Im s[i]), one plain store per row and warp (each (chunk,
+// row) has exactly one writer); scan.cu adds the chunks in order.
 template <int V, int HALO, int STORE, bool EMIT_Y, bool VEC>
 __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void* out1,
                                               const float2* synth, float* y,
@@ -479,7 +480,8 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
       if constexpr (EMIT_Y) {
         const float v = warp_sum8(yv, lane);
         const int r = row_of_lane(lane);
-        if ((lane & 3) == 0 && k0 + r < rows) atomicAdd(&y[row0 + k0 + r], y_scale * v);
+        if ((lane & 3) == 0 && k0 + r < rows)
+          y[(size_t)blockIdx.x * a.M + row0 + k0 + r] = y_scale * v;
       }
     }
   }

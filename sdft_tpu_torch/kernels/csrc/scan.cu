@@ -27,15 +27,24 @@
 // How the design answers it: the spectra are written once, packed, by
 // coalesced vector stores, and y is reduced from registers: each warp sums
 // eight rows at a time by a transposed shuffle butterfly (nine shuffles
-// for eight rows) and adds each row with one atomicAdd, so synthesis
-// costs no second read of the spectra and no block barrier.  Strips of
-// two bins (K2_STRIP) keep twice K1's warps in flight on these small
-// blocks.  The atomics sum the warps' partial rows in an order that
-// changes from run to run, so y is reproducible only to f32 rounding.
+// for eight rows) over its chunk of bins, so synthesis costs no second
+// read of the spectra and no block barrier.  Strips of two bins
+// (K2_STRIP) keep twice K1's warps in flight on these small blocks.
+//
+// y in a fixed order: every (chunk, row) pair has exactly one writer, so
+// the tile kernel stores each chunk's partial row sum into a scratch
+// buffer y_part[chunk, row] (16 x 8000 f32, 0.5 MB, at m = 1000 and
+// B = 8000) and a second small kernel, scan_kernel_rows, adds the chunks in
+// ascending order.  Two launches on the same inputs give the same y bit
+// for bit (an atomicAdd per row and warp, the previous design, added them
+// in an order that changed from run to run).
+//
 // Device time at m = 1000, B = 8000 (NVIDIA H100 80GB HBM3, 700 W;
-// kernels/compare_bodies.py, in turns with the previous body of one bin
-// per thread and aux in shared memory): 0.024-0.025 ms (was 0.032-0.033),
-// 77-81 % of its bound.
+// kernels/compare_bodies.py, in turns with the atomic form): 0.0260-0.0264
+// ms for both kernels, against 0.0244 with one atomicAdd per row and warp;
+// 75 % of its bound (0.0196 ms).  The atomic form had taken 0.024-0.025 ms
+// against 0.032-0.033 for the earlier body of one bin per thread with aux
+// in shared memory.
 
 #include "common.cuh"
 
@@ -59,35 +68,56 @@ int launch_halo(const TileArgs& a, cudaStream_t s, void* out0, void* out1,
   }
 }
 
+// y[k] = sum of the chunks' partial rows y_part[c, k], c = 0, 1, ... in
+// order: one thread per row, reads coalesced across the warp.
+__global__ void scan_kernel_rows(const float* __restrict__ y_part, float* __restrict__ y,
+                                 int chunks, int M) {
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < M; k += gridDim.x * blockDim.x) {
+    float s = y_part[k];
+    for (int c = 1; c < chunks; ++c) s += y_part[(size_t)c * M + k];
+    y[k] = s;
+  }
+}
+
 template <int STORE>
 int launch(const TileArgs& a, bool vec, cudaStream_t s, void* out0, void* out1,
-           const float2* synth, float* y, float y_scale) {
-  return vec ? launch_halo<STORE, true>(a, s, out0, out1, synth, y, y_scale)
-             : launch_halo<STORE, false>(a, s, out0, out1, synth, y, y_scale);
+           const float2* synth, float* y_part, float* y, float y_scale) {
+  const int err = vec ? launch_halo<STORE, true>(a, s, out0, out1, synth, y_part, y_scale)
+                      : launch_halo<STORE, false>(a, s, out0, out1, synth, y_part, y_scale);
+  if (err != 0) return err;
+  const int threads = 256, chunks = (a.m + chunk_bins(K2_STRIP) - 1) / chunk_bins(K2_STRIP);
+  scan_kernel_rows<<<(a.M + threads - 1) / threads, threads, 0, s>>>(y_part, y, chunks, a.M);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sdft
 
+// y_part: (y_chunks, M) float scratch, one row per chunk; y_chunks must be
+// ceil(m / chunk_bins(K2_STRIP)), the chunks this build's kernels write.
 extern "C" int sdft_scan_launch(const void* c0, const void* delta,
                                 const void* table, const void* synth,
-                                void* out0, void* out1, void* y, int m, int M,
+                                void* out0, void* out1, void* y_part, int y_chunks,
+                                void* y, int m, int M,
                                 int K, int nt, int halo, float w0, float w1,
                                 float w2, int roi_first, int roi_last,
                                 float y_scale, int store, int vector,
                                 void* stream) {
   using namespace sdft;
+  if (y_chunks != (m + chunk_bins(K2_STRIP) - 1) / chunk_bins(K2_STRIP))
+    return (int)cudaErrorInvalidValue;
   const TileArgs a{static_cast<const float2*>(c0),
                    static_cast<const float*>(delta),
                    static_cast<const float2*>(table),
                    m, M, K, nt, halo, w0, w1, w2, roi_first, roi_last};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* sy = static_cast<const float2*>(synth);
+  float* yp = static_cast<float*>(y_part);
   float* yy = static_cast<float*>(y);
   const bool v = vector != 0;
   switch (store) {
-    case PACKED_F32: return launch<PACKED_F32>(a, v, s, out0, out1, sy, yy, y_scale);
-    case PLANAR_F32: return launch<PLANAR_F32>(a, v, s, out0, out1, sy, yy, y_scale);
-    case NO_SPECTRA: return launch<NO_SPECTRA>(a, v, s, out0, out1, sy, yy, y_scale);
+    case PACKED_F32: return launch<PACKED_F32>(a, v, s, out0, out1, sy, yp, yy, y_scale);
+    case PLANAR_F32: return launch<PLANAR_F32>(a, v, s, out0, out1, sy, yp, yy, y_scale);
+    case NO_SPECTRA: return launch<NO_SPECTRA>(a, v, s, out0, out1, sy, yp, yy, y_scale);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,9 @@ The TPU kernel carries the accumulator from one grid step to the next; the
 port derives every tile's carry up front with K1's prologue
 (``spectra.spectra_prologue``), and the kernel (csrc/scan.cu) adds the
 synthesis reduction y = 2 * (Re out . Re s - Im out . Im s) to K1's tile
-body.  The next accumulator comes from the same prologue.
+body.  Each bin chunk's partial row sums go to a scratch buffer and a
+second small kernel adds them in chunk order, so y repeats bit for bit
+from launch to launch.  The next accumulator comes from the same prologue.
 
 On a CPU tensor the wrapper runs the plain version
 (``forward_and_y_reference``); on a CUDA tensor it launches the kernel or
@@ -72,11 +74,16 @@ def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
         raise ValueError(f"synth: need contiguous float32 ({m}, 2) on {dev}")
     outs, (p0, p1) = (allocate(pro, m, layout, "float32") if layout
                       else (None, (None, None)))
-    y = torch.zeros(pro.M, dtype=torch.float32, device=dev)
+    # each chunk's partial row sums, added in chunk order by the second
+    # kernel of the launch (csrc/scan.cu: y in a fixed order); the launch
+    # refuses a row count other than its build's chunk count
+    y_part = torch.empty((-(-m // (32 * STRIP)), pro.M), dtype=torch.float32, device=dev)
+    y = torch.empty(pro.M, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_scan_launch(
-            *args[:3], synth.data_ptr(), p0, p1, y.data_ptr(), *args[3:],
+            *args[:3], synth.data_ptr(), p0, p1, y_part.data_ptr(), y_part.shape[0],
+            y.data_ptr(), *args[3:],
             plan.synthesis_weight, STORES[layout], int(vector_stores(m, STRIP)), stream)
     check(err, "sdft_scan_launch")
     LAUNCHES += 1

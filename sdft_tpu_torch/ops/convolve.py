@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..plan import Plan
-from ..windows import WINDOW_HALO, WINDOW_TAPS, Window
+from ..windows import WINDOW_HALO, WINDOW_TAPS
 
 
 def hermitian_pad(aux: torch.Tensor, halo: int) -> torch.Tensor:
@@ -29,15 +29,21 @@ def hermitian_pad(aux: torch.Tensor, halo: int) -> torch.Tensor:
 def window_convolve(plan: Plan, aux: torch.Tensor) -> torch.Tensor:
     """Apply the window's bin convolution, with Hermitian guards built from
     the data, and the analysis weight 1/(2m).  aux: (..., m) complex."""
-    window = plan.window
-    halo = WINDOW_HALO[window]
+    halo = WINDOW_HALO[plan.window]
+    if halo == 0:
+        return aux * plan.analysis_weight
+    return convolve_padded(plan, hermitian_pad(aux, halo).resolve_conj())
+
+
+def convolve_padded(plan: Plan, padded: torch.Tensor) -> torch.Tensor:
+    """The window's bin convolution times 1/(2m) on columns already padded
+    with ``halo`` guard columns on each side (Hermitian guards, or a bin
+    shard's neighbour columns): (..., n + 2*halo) -> (..., n)."""
+    halo = WINDOW_HALO[plan.window]
     w = plan.analysis_weight
-    c0, c1, c2 = WINDOW_TAPS[window]
-
-    if window is Window.BOXCAR:
-        return aux * w
-
-    padded = hermitian_pad(aux, halo).resolve_conj()
+    c0, c1, c2 = WINDOW_TAPS[plan.window]
+    if halo == 0:
+        return padded * w
     n = padded.shape[-1]
     out = c0 * padded[..., halo:n - halo]
     out = out + c1 * (padded[..., halo - 1:n - halo - 1]

@@ -233,9 +233,11 @@ def _fused_driver_consts(plan: Plan, hop: int, sub: int, device):
 
 # -- the collapsed forms -----------------------------------------------------------
 
-def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int):
-    """row0[c, t, i] = T_i^((offset_c + t*K) mod 2m) for t in [0, nt):
-    (C, nt, m) complex in the plan's FD precision.
+def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int,
+                bins: torch.Tensor | None = None):
+    """row0[c, t, i] = T_i^((offset_c + t*K) mod 2m) for t in [0, nt) and
+    the bins i of ``bins`` (default all m): (C, nt, bins) complex in the
+    plan's FD precision.
 
     The exponents are periodic in t with period p = 2m / gcd(K, 2m), so
     only min(nt, p) rows of exact integer phases are evaluated and the rest
@@ -243,11 +245,12 @@ def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int):
     m = plan.dftsize
     n2 = 2 * m
     dev = offset.device
+    if bins is None:
+        bins = torch.arange(m, device=dev)
     q = min(nt, n2 // math.gcd(K, n2))
     e0 = torch.remainder(offset.to(torch.int64)[:, None]
                          + torch.arange(q, device=dev)[None, :] * K, n2)
-    rows = phasors(m, mulmod(e0[..., None], torch.arange(m, device=dev), n2),
-                   -1.0, plan.precision.fd_dtype)
+    rows = phasors(m, mulmod(e0[..., None], bins, n2), -1.0, plan.precision.fd_dtype)
     if nt > q:
         rows = rows[:, torch.arange(nt, device=dev) % q]
     return rows
@@ -297,32 +300,40 @@ def _synthesize(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,
     return y.reshape(C, nt * K)[:, :M].to(plan.precision.td_dtype)
 
 
-def _hop_spectra(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, stepped,
-                 hop: int, M: int) -> torch.Tensor:
-    """Packed spectra at samples 0, hop, 2*hop, ... of the block:
-    (C, ceil(M/hop), m, 2).  With tiles of one hop (``stepped`` None) the
-    spectrum of tile t is (c0_t + d0_t) * conj(T_i); with tiles of sub hops
-    it is (c0_t + ptotals_j) * T_i^-(j*hop+1) for inner hop j."""
+def _hop_aux(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, stepped, hop: int,
+             M: int, bins: torch.Tensor | None = None) -> torch.Tensor:
+    """The demodulated accumulators at samples 0, hop, 2*hop, ... of the
+    block, before the window: (C, ceil(M/hop), nbins) complex for the bins
+    of ``bins`` (default all m), which are the columns of ``c0`` and of the
+    ``stepped`` tables.  With tiles of one hop (``stepped`` None) tile t
+    gives (c0_t + d0_t) * conj(T_i); with tiles of sub hops inner hop j
+    gives (c0_t + ptotals_j) * T_i^-(j*hop+1)."""
     m = plan.dftsize
     fd = plan.precision.fd_dtype
     C, nt, K = dt.shape
     dev = dt.device
+    if bins is None:
+        bins = torch.arange(m, device=dev)
     if stepped is None:
         d0 = dt[:, :, :1]
         if plan.roi is not None:
-            d0 = d0 * roi_mask(plan, dev, fd)
-        conj_base = phasors(m, torch.arange(m, device=dev), 1.0, fd)
-        aux = (c0 + d0) * conj_base
-    else:
-        sf, dr = stepped
-        sub = dr.shape[0]
-        with fp32_matmul(plan.precision):
-            pt = torch.view_as_complex((dt @ sf).view(C, nt, sub, m, 2))
-        aux = ((c0[:, :, None, :] + pt) * dr).reshape(C, nt * sub, m)
-        aux = aux[:, :-(-M // hop)]
-    out = window_convolve(plan, aux)
+            d0 = d0 * roi_mask(plan, dev, fd)[bins]
+        return (c0 + d0) * phasors(m, bins, 1.0, fd)
+    sf, dr = stepped
+    sub, nbins = dr.shape
+    with fp32_matmul(plan.precision):
+        pt = torch.view_as_complex((dt @ sf).view(C, nt, sub, nbins, 2))
+    aux = ((c0[:, :, None, :] + pt) * dr).reshape(C, nt * sub, nbins)
+    return aux[:, :-(-M // hop)]
+
+
+def _hop_spectra(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, stepped,
+                 hop: int, M: int) -> torch.Tensor:
+    """Packed spectra at samples 0, hop, 2*hop, ... of the block:
+    (C, ceil(M/hop), m, 2)."""
+    out = window_convolve(plan, _hop_aux(plan, dt, c0, stepped, hop, M))
     if plan.roi is not None:
-        out = out * roi_mask(plan, dev, fd)
+        out = out * roi_mask(plan, dt.device, plan.precision.fd_dtype)
     return pack(out)
 
 

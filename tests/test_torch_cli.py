@@ -111,11 +111,41 @@ def test_writers_give_the_jax_bytes(tmp_path, bits):
     assert (tmp_path / "t.dft").read_bytes() == (tmp_path / "j.dft").read_bytes()
 
 
+@pytest.mark.parametrize("m,hop,window,latency,block", [
+    (100, 100, "hann", 1, "800"),
+    (64, 4, "hamming", 0.5, "480"),
+])
+def test_mesh_cli_matches_the_jax_mesh_cli(tmp_path, m, hop, window, latency, block):
+    """``--mesh 1x2x1 --device cpu`` on two spawned Gloo ranks against
+    ``python -m sdft_tpu ... --mesh 1x2x1`` on the virtual CPU mesh: whole
+    blocks through the sharded driver, the trailing partial block on the
+    single-device path.  Same gates as the single-device CLI."""
+    src = _src(tmp_path, seed=hop + 1)
+    extra = ["--mesh", "1x2x1", "--block", block]
+    jw, jd = _run(j_main, tmp_path, "jax", [m, hop, window, latency, src], extra)
+    tw, td = str(tmp_path / "port.wav"), str(tmp_path / "port.dft")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tests", "helpers", "torch_sharded_worker.py"),
+         "1x2x1", "--cli", *map(str, [m, hop, window, latency, src]), tw, td, *extra,
+         "--device", "cpu"], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-3000:]
+    want = j_dump.load_complex(jd, m)
+    got = dump.load_complex(td, m)
+    assert got.shape == want.shape == (3000 // hop, m)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    a, b = _pcm(tw), _pcm(jw)
+    assert a.shape == b.shape == (3000 // hop * hop,)
+    assert np.abs(a - b).max() <= 1
+
+
 def test_what_the_cli_does_not_port_raises(tmp_path, capsys):
     src = _src(tmp_path, n=500)
     args = ["64", "50", "hann", "1", src, str(tmp_path / "o.wav"), str(tmp_path / "o.dft")]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_main(args + ["--mesh", "1x4x2", "--device", "cpu"])
+    for spec, msg in (("2x1x1", "channel axis must be 1"), ("1x4", "expects CxTxB")):
+        with pytest.raises(SystemExit, match=msg):
+            t_main(args + ["--mesh", spec, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="tile\\*T"):
+        t_main(args + ["--mesh", "1x4x1", "--block", "100", "--device", "cpu"])
     for sub in ("bench", "trace"):
         with pytest.raises(NotImplementedError, match="item 12"):
             t_main([sub, "4096", "16384"])

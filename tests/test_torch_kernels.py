@@ -365,7 +365,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, m, window, roi, M):
     dk, yk = scan.launch_scan(tp, pro, synth, "packed")
     dr, yr = scan.forward_and_y_reference(tp, pro, synth, "packed")
     torch.testing.assert_close(dk, dr, atol=2e-6, rtol=0.0)
-    # y: the atomics sum the blocks' partial rows in a run-dependent order
+    # y: the chunks' partial rows are added in another order than the
+    # plain version's matmul
     torch.testing.assert_close(yk, yr, atol=1e-5, rtol=0.0)
     torch.cuda.synchronize()
 
@@ -385,7 +386,7 @@ def _card_rois(m):
 def test_cuda_every_store_form_and_k2_match_plain_versions(cuda_device, m, window, roi_case):
     """Every K1 store form and K2 against the plain versions at a ragged M
     (a multiple of neither K nor 16): f32 atol 2e-6, bf16 one rounding
-    (2^-8 relative) on top, y 1e-5 (atomics in a run-dependent order).
+    (2^-8 relative) on top, y 1e-5 (the chunks' sums in another order).
     Packed f32 equals planar f32 bit for bit; power f32 equals re*re +
     im*im of the planar f32 output to 1 ulp."""
     roi = _card_rois(m)[roi_case]
@@ -421,6 +422,55 @@ def test_cuda_every_store_form_and_k2_match_plain_versions(cuda_device, m, windo
             assert torch.equal(dk[0], k2_packed[..., 0]) and torch.equal(dk[1], k2_packed[..., 1])
         torch.testing.assert_close(yk, yr, atol=1e-5, rtol=0.0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,window,M", [(1000, "hann", 8000), (4096, "blackman", 2 * 128 + 37),
+                                        (129, "boxcar", 777)])
+def test_cuda_k2_y_is_deterministic(cuda_device, m, window, M):
+    """Two K2 launches on the same inputs give the same y and spectra bit
+    for bit (the chunks' partial rows are added in a fixed order)."""
+    tp = T.Plan(m, window=window, precision=T.FAST_PRECISION)
+    st, _ = T.sdft(tp, T.init_state(tp, device=cuda_device),
+                   torch.as_tensor(_signal(333, 1), device=cuda_device))
+    pro = spectra.spectra_prologue(tp, st, torch.as_tensor(_signal(M, 2), device=cuda_device))
+    synth = scan.synthesis_row(tp, cuda_device)
+    runs = [scan.launch_scan(tp, pro, synth, "packed") for _ in range(3)]
+    for d, y in runs[1:]:
+        assert torch.equal(y, runs[0][1]) and torch.equal(d, runs[0][0])
+    _, y_only = scan.launch_scan(tp, pro, synth, None)
+    assert torch.equal(y_only, runs[0][1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_hop1_round_trip_repeats_bit_for_bit(cuda_device, tmp_path):
+    """sharded_roundtrip_pallas (one K2 launch per block on the one-rank
+    NCCL mesh) run twice over the same chained blocks gives the same
+    spectra and samples bit for bit."""
+    import torch.distributed as dist
+
+    from sdft_tpu_torch import parallel as par
+
+    par.multihost.initialize(f"file://{tmp_path}/group", 1, 0)
+    try:
+        mesh = par.make_mesh(1, 1, 1)
+        tp = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+        xs = torch.as_tensor(_signal(3 * 8000, 4), device=cuda_device).reshape(3, 1, 8000)
+
+        def chain():
+            st, outs = T.init_state(tp, channels=1, device=cuda_device), []
+            for x in xs:
+                st, d, y = par.sharded_roundtrip_pallas(tp, mesh, st, x)
+                outs += [d.to_local(), y.to_local()]
+            return outs + [st.accumulator.to_local()]
+
+        launches = scan.LAUNCHES
+        first, second = chain(), chain()
+        assert scan.LAUNCHES - launches == 6
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda
