@@ -55,7 +55,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the CLI with ``--mesh 1x1x1 --fd32``.  Each is held against
                its unsharded counterpart and float64.  K1 must have been
                launched by ``sharded_sdft_pallas`` and K2 by
-               ``sharded_roundtrip_pallas``.
+               ``sharded_roundtrip_pallas``;
+     e. tools  ``bench --mesh 1x1x1`` inside part d's group (its JSON line,
+               value > 0); ``bench 4096 16384 3`` (both rows positive, the
+               scan-form row through K2, every roofline share <= 1.05);
+               ``trace`` over the CLI at m = 1000, hop = 1, --fd32 on part
+               b's WAV (the trace parses and holds K2, the outputs equal an
+               untraced run's bit for bit); each ``examples/*_torch.py`` on
+               the card (``analysis_torch`` through K1); and
+               ``scripts/crosscheck_torch.py`` at m = 1000, hop = 100,
+               --fd32 against the native oracle, in a subprocess.  K1 and
+               K2 must have been launched.
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
                inputs, at the main path's shapes;
@@ -97,6 +107,9 @@ import time
 
 import numpy as np
 import torch
+
+from sdft_tpu_torch.profiling import (K1_FLOPS_PER_BIN, K2_FLOPS_PER_BIN, bound,
+                                      device_time, wall_time)
 
 SEED = 0
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -422,75 +435,9 @@ def kernels_vs_plain(T, S, Q, dev) -> dict:
     return out
 
 
-def wall_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Wall time per call between CUDA events, back to back: what a caller
-    sees, host overhead included."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def device_ms(fn, reps: int, warmup: int = 2, attempts: int = 4) -> float:
-    """Device time per call: the summed durations of the kernels and copies
-    the calls ran on the card (torch.profiler), so the host's gaps between
-    launches do not count.  The warm-up calls run inside the profiler, as
-    its own warm-up step, with the card idle for 20 ms on either side of
-    the step boundary: with the tracer started only around the timed calls,
-    a run of 10 K1 launches has read 0.8 of the kernel's time (its form at
-    110 % of the HBM bound), and kernels next to the boundary have been
-    counted on the wrong side of it.  Only recorded time is reported: a
-    measurement in which some kernel's count is not a multiple of ``reps``
-    (an event lost or misplaced) is taken again, and after ``attempts``
-    such measurements this raises."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for calls in (max(1, warmup), reps):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                time.sleep(0.02)
-                prof.step()
-                time.sleep(0.02)
-        events = [e for e in prof.key_averages()
-                  if e.count > 0 and e.self_device_time_total > 0]
-        odd = [f"{e.key[:40]} x{e.count}" for e in events if e.count % reps]
-        if not events:
-            raise RuntimeError("the profiler saw no device time")
-        if not odd:
-            return sum(e.self_device_time_total for e in events) / reps / 1e3
-        print(f"  (profiler counts not a multiple of {reps} calls, measuring again: "
-              f"{'; '.join(odd)})", flush=True)
-    raise RuntimeError(f"the profiler lost or misplaced events in {attempts} measurements")
-
-
-#: published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FP32
-#: flop/s outside the tensor cores, bf16 tensor-core flop/s
-PEAK_BYTES, PEAK_F32, PEAK_BF16_TC = 3.35e12, 67e12, 989e12
-#: flops per output bin of the tile body (running sum 4, phasor product 6,
-#: demodulation 6, Hann stencil 8, power 3: about 25) and of K2's y (4 more)
-K1_FLOPS_PER_BIN, K2_FLOPS_PER_BIN = 25, 29
 #: bytes per output bin of each K1 store form
 FORM_BYTES = {("packed", "float32"): 8, ("planar", "float32"): 8,
               ("planar", "bfloat16"): 4, ("power", "float32"): 4, ("power", "bfloat16"): 2}
-
-
-def bound(nbytes: float, f32_flops: float = 0.0, tc_flops: float = 0.0) -> tuple:
-    """The least time the card could take (ms) and what bounds it: bytes
-    over HBM's rate, or operations over their peak rates."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (f32_flops / PEAK_F32 + tc_flops / PEAK_BF16_TC) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def tile_input_bytes(pro) -> int:
@@ -515,13 +462,13 @@ def timings(T, S, Q, dev, card: str) -> dict:
     st = T.init_state(plan, device=dev)
     x = signal(M, SEED + 7, dev)
     pro = S.spectra_prologue(plan, st, x)
-    t_pro = device_ms(lambda: S.spectra_prologue(plan, st, x), 10)
-    w_pro = wall_ms(lambda: S.spectra_prologue(plan, st, x), 10)
+    t_pro = device_time(lambda: S.spectra_prologue(plan, st, x), 10)
+    w_pro = wall_time(lambda: S.spectra_prologue(plan, st, x), 10)
     print(f"timing: K1 prologue m={m} M={M}: device {t_pro:.4f} ms, wall "
           f"{w_pro:.4f} ms [{card}]", flush=True)
     for form, dtype in S.STORES:
-        k = device_ms(lambda: S.launch_spectra(plan, pro, form, dtype), 10)
-        p = device_ms(lambda: S.spectra_reference(plan, pro, form, dtype), 3, 1)
+        k = device_time(lambda: S.launch_spectra(plan, pro, form, dtype), 10)
+        p = device_time(lambda: S.spectra_reference(plan, pro, form, dtype), 3, 1)
         nbytes = M * m * FORM_BYTES[form, dtype] + tile_input_bytes(pro)
         b_ms, b_by = bound(nbytes, K1_FLOPS_PER_BIN * M * m)
         print(f"timing: K1 {form} {dtype} m={m} M={M}: kernel device {k:.4f} ms "
@@ -530,8 +477,8 @@ def timings(T, S, Q, dev, card: str) -> dict:
               f"{p:.4f} ms; {S.store_bytes(m, form, dtype)}-byte stores [{card}]", flush=True)
         res[f"k1_{form}_{dtype}"] = (k, p, b_ms, b_by)
     for dtype in (None, "bfloat16"):
-        e2e = wall_ms(lambda: T.sdft(plan, st, x, "planar", dtype), 10)
-        dev_t = device_ms(lambda: T.sdft(plan, st, x, "planar", dtype), 10)
+        e2e = wall_time(lambda: T.sdft(plan, st, x, "planar", dtype), 10)
+        dev_t = device_time(lambda: T.sdft(plan, st, x, "planar", dtype), 10)
         print(f"timing: sdft planar {dtype or 'float32'} m={m} M={M}: wall "
               f"{e2e:.4f} ms ({M / e2e * 1e3:.4e} samples/s), device "
               f"{dev_t:.4f} ms [{card}]", flush=True)
@@ -544,8 +491,8 @@ def timings(T, S, Q, dev, card: str) -> dict:
     x = signal(B, SEED + 8, dev)
     pro = S.spectra_prologue(plan, st, x)
     synth = Q.synthesis_row(plan, dev)
-    k = device_ms(lambda: Q.launch_scan(plan, pro, synth, "packed"), 20)
-    p = device_ms(lambda: Q.forward_and_y_reference(plan, pro, synth, "packed"), 5, 1)
+    k = device_time(lambda: Q.launch_scan(plan, pro, synth, "packed"), 20)
+    p = device_time(lambda: Q.forward_and_y_reference(plan, pro, synth, "packed"), 5, 1)
     nbytes = B * m * 8 + B * 4 + tile_input_bytes(pro) + synth.numel() * 4
     b_ms, b_by = bound(nbytes, K2_FLOPS_PER_BIN * B * m)
     print(f"timing: K2 packed m={m} B={B}: kernel device {k:.4f} ms "
@@ -553,8 +500,8 @@ def timings(T, S, Q, dev, card: str) -> dict:
           f"({b_by}), {b_ms / k:.1%} of bound; plain device {p:.4f} ms; no single "
           f"PyTorch call computes it (library: none) [{card}]", flush=True)
     xs = signal(8 * B, SEED + 9, dev).reshape(8, B)
-    chain = wall_ms(lambda: T.roundtrip_hopped(plan, st, xs, 1), 3, 1) / 8
-    chain_dev = device_ms(lambda: T.roundtrip_hopped(plan, st, xs, 1), 3, 1) / 8
+    chain = wall_time(lambda: T.roundtrip_hopped(plan, st, xs, 1), 3, 1) / 8
+    chain_dev = device_time(lambda: T.roundtrip_hopped(plan, st, xs, 1), 3, 1) / 8
     print(f"timing: roundtrip_hopped(hop=1) m={m} B={B} refresh_every=1: wall "
           f"{chain:.4f} ms per block ({B / chain * 1e3:.4e} samples/s), device "
           f"{chain_dev:.4f} ms per block [{card}]", flush=True)
@@ -577,8 +524,8 @@ def stft_beside_k1(T, plan, x, card: str) -> float:
         return torch.stft(x, n_fft=n, hop_length=1, window=win, center=False,
                           return_complex=True)
 
-    lib_ms = device_ms(stft, 3, 1)
-    lib_wall = wall_ms(stft, 3, 1)
+    lib_ms = device_time(stft, 3, 1)
+    lib_wall = wall_time(stft, 3, 1)
     z = stft()
     _, d = T.sdft(plan, T.init_state(plan, device=x.device), x)
     err = scale = 0.0
@@ -617,8 +564,8 @@ def batch_timings(T, dev, card: str, m: int = 4096, C: int = 8, M: int = 32768) 
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     del out
-    d = device_ms(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
-    w = wall_ms(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
+    d = device_time(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
+    w = wall_time(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
     spectra = 2 * C * M * m * 4
     print(f"timing: sdft C={C} M={M} m={m} planar f32: device {d:.4f} ms, wall {w:.4f} ms, "
           f"peak {peak / 2**30:.3f} GiB above the inputs for {spectra / 2**30:.1f} GiB of "
@@ -643,8 +590,8 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
         x = x if C == 1 else x.reshape(C, M)
         cost = profiling.roundtrip_cost(plan, C * M)
         for K in (128, 256, 512, 1024):
-            d = device_ms(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
-            w = wall_ms(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
+            d = device_time(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
+            w = wall_time(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
             print(f"timing: roundtrip (collapsed) m={m} C={C} M={M} k_tile={K}: device "
                   f"{d:.4f} ms, wall {w:.4f} ms ({C * M / w * 1e3:.4e} samples/s, "
                   f"{cost.hbm_bytes / d / 1e6:.3f} GB/s of roundtrip_cost bytes) [{card}]",
@@ -666,8 +613,8 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
         st = T.init_state(pl, device=dev)
         _, y = T.roundtrip(pl, st, x)
         err = maxerr(y, y64)
-        d = device_ms(lambda: T.roundtrip(pl, st, x), 10)
-        w = wall_ms(lambda: T.roundtrip(pl, st, x), 10)
+        d = device_time(lambda: T.roundtrip(pl, st, x), 10)
+        w = wall_time(lambda: T.roundtrip(pl, st, x), 10)
         print(f"timing: roundtrip (collapsed) mxu={mxu} m={m} M={M}: error vs f64 "
               f"{err:.3e} (split4 gate 5e-4), device {d:.4f} ms, wall {w:.4f} ms "
               f"[{card}]", flush=True)
@@ -681,8 +628,8 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
     st = T.init_state(plan, device=dev)
     for B in (4000, 16000):
         xs = signal(8 * B, SEED + 16, dev).reshape(8, B)
-        w = wall_ms(lambda: T.roundtrip_hopped(plan, st, xs, hop), 3, 1) / 8
-        d = device_ms(lambda: T.roundtrip_hopped(plan, st, xs, hop), 3, 1) / 8
+        w = wall_time(lambda: T.roundtrip_hopped(plan, st, xs, hop), 3, 1) / 8
+        d = device_time(lambda: T.roundtrip_hopped(plan, st, xs, hop), 3, 1) / 8
         print(f"timing: roundtrip_hopped(hop={hop}) m={m} B={B} refresh_every=1: wall "
               f"{w:.4f} ms per block ({B / w * 1e3:.4e} samples/s), device {d:.4f} ms "
               f"per block, device idle {max(0.0, 1 - d / w):.1%} [{card}]", flush=True)
@@ -693,8 +640,8 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
     # has summed one launch of five for the store probe)
     p = P.probe_inputs(512, seed=SEED + 17, device=dev)
     for v in P.VARIANTS:
-        k = wall_ms(lambda: P.launch_kparts(v, p), 5, 1)
-        pl = wall_ms(lambda: P.kparts_reference(v, p), 2, 1)
+        k = wall_time(lambda: P.launch_kparts(v, p), 5, 1)
+        pl = wall_time(lambda: P.kparts_reference(v, p), 2, 1)
         print(f"timing: kparts {v} nt=512: kernel {k:.4f} ms ({k * 1e3 / 512:.3f} "
               f"us/tile, {2 * 512 * 128 * 4096 * 4 / k / 1e6:.1f} GB/s stored), plain "
               f"{pl:.4f} ms (CUDA events) [{card}]", flush=True)
@@ -953,8 +900,8 @@ def stream_timings(T, dev, card: str, k1_ms: float) -> dict:
             "float64 ops sdft": lambda: T.sdft(p64, st64, x),
             "float64 ops isdft": lambda: T.isdft(p64, d64)}
     for name, fn in legs.items():
-        dv = device_ms(fn, 2, 1)
-        w = wall_ms(fn, 2, 1)
+        dv = device_time(fn, 2, 1)
+        w = wall_time(fn, 2, 1)
         print(f"timing: {name} m={m} M={M}: device {dv:.4f} ms ({M / dv * 1e3:.4e} "
               f"samples/s), wall {w:.4f} ms ({M / w * 1e3:.4e} samples/s) [{card}]",
               flush=True)
@@ -1008,7 +955,7 @@ def timed_pair(name: str, sharded, unsharded, reps: int, card: str) -> dict:
     res = {}
     for who, fn in (("unsharded", unsharded), ("sharded", sharded),
                     ("sharded", sharded), ("unsharded", unsharded)):
-        w, d = wall_ms(fn, reps, 1), device_ms(fn, reps, 1)
+        w, d = wall_time(fn, reps, 1), device_time(fn, reps, 1)
         res.setdefault(who, []).append((w, d))
     out = {}
     for who, vals in res.items():
@@ -1278,6 +1225,126 @@ def sharded_path(T, S, Q, dev, card: str, cli_ref: dict, mesh) -> tuple:
           f"{t_cli:.2f} s host clock [{card}]", flush=True)
     errs["shard_cli_s"] = t_cli
     return errs, jobs, count.by
+
+
+#: the port's examples, driven on the card by part e
+EXAMPLES = ("analysis", "latency", "precision", "stft_window_test", "streaming", "transform")
+
+
+def captured(fn, *args) -> str:
+    """Run ``fn(*args)`` with its standard output captured, which is then
+    printed indented and returned; a non-zero return raises."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    out = buf.getvalue()
+    print("".join(f"    | {line}\n" for line in out.splitlines()), end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{fn.__name__}{args} returned {rc}")
+    return out
+
+
+def bench_mesh(card: str) -> dict:
+    """Part e, inside part d's one-rank group: ``bench --mesh 1x1x1``."""
+    from sdft_tpu_torch import cli
+
+    out = captured(cli.main, ["bench", "--mesh", "1x1x1"])
+    row = json.loads(out.strip().splitlines()[-1])
+    print(f"  bench --mesh 1x1x1: {row['value']:.4e} samples/s, scaling efficiency "
+          f"{row['scaling_efficiency_vs_1dev']} [{card}]", flush=True)
+    if not row["value"] > 0:
+        raise AssertionError(f"bench --mesh 1x1x1 value {row['value']}")
+    return row
+
+
+def tools_path(T, S, Q, card: str) -> dict:
+    """Part e: the tools a user runs.  ``bench 4096 16384 3`` (both rows
+    positive, the scan-form row through K2, every roofline share <= 1.05);
+    ``trace`` over the CLI at m = 1000, hop = 1, --fd32 on part b's 8 s WAV
+    (the trace parses and holds K2's kernel, the outputs equal an untraced
+    run's bit for bit); each ``examples/*_torch.py`` on cuda:0
+    (``analysis_torch`` through K1); ``scripts/crosscheck_torch.py`` at
+    m = 1000, hop = 100, --fd32 in a subprocess, so that the native
+    oracle's FTZ/DAZ never reaches this process."""
+    import filecmp
+    import importlib.util
+    import re
+
+    from sdft_tpu_torch import cli
+
+    res = {}
+    k2 = Q.LAUNCHES
+    out = captured(cli.main, ["bench", "4096", "16384", "3"])
+    rates = [float(r.replace(",", "")) for r in re.findall(r"-> ([\d,]+) samples/s", out)]
+    shares = [float(s) / 100 for s in re.findall(r"([\d.]+)% of bound", out)
+              + re.findall(r"roofline fraction: ([\d.]+)%", out)]
+    print(f"  bench rows (samples/s): {rates}; K2 launches {Q.LAUNCHES - k2}; shares of "
+          f"bound and roofline fractions {shares} [{card}]", flush=True)
+    if len(rates) != 2 or min(rates) <= 0:
+        raise AssertionError(f"bench rows {rates}")
+    if Q.LAUNCHES == k2:
+        raise AssertionError("bench's scan-form row did not launch K2")
+    if len(shares) != 3 or max(shares) > 1.05:
+        raise AssertionError(f"bench shares {shares}: a count or the clock is wrong")
+    res["bench_samples_per_s"] = rates
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = cli_wav(tmp)
+        args = ["1000", "1", "hann", "1", src]
+        t0 = time.perf_counter()
+        captured(cli.main, ["trace", f"{tmp}/tb"] + args + [f"{tmp}/t.wav", f"{tmp}/t.dft",
+                                                           "--fd32"])
+        t_traced = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        captured(cli.main, args + [f"{tmp}/u.wav", f"{tmp}/u.dft", "--fd32"])
+        t_plain = time.perf_counter() - t0
+        traces = list(pathlib.Path(tmp, "tb").glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"trace wrote {traces}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        k2_names = sorted(n for n in kernels if "scan_kernel" in n)
+        same = all(filecmp.cmp(f"{tmp}/t.{x}", f"{tmp}/u.{x}", shallow=False)
+                   for x in ("dft", "wav"))
+        print(f"  trace: {traces[0].stat().st_size / 2**20:.1f} MiB, {len(events)} events, "
+              f"{len(kernels)} kernel names, K2's: {k2_names[:2]}; traced CLI "
+              f"{t_traced:.2f} s, untraced {t_plain:.2f} s host clock; .dft "
+              f"{pathlib.Path(tmp, 'u.dft').stat().st_size / 2**30:.2f} GiB; outputs "
+              f"bit-identical: {same} [{card}]", flush=True)
+        if not k2_names:
+            raise AssertionError("the trace holds no K2 kernel")
+        if not same:
+            raise AssertionError("the traced CLI's outputs differ from the untraced run's")
+        res["trace_s"] = (t_traced, t_plain)
+
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(
+                f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            k1 = S.LAUNCHES
+            t0 = time.perf_counter()
+            kw = {"out_dir": f"{tmp}/ex"} if name in ("analysis", "transform") else {}
+            mod.main(device="cuda:0", **kw)
+            print(f"  example {name}_torch: {time.perf_counter() - t0:.2f} s host clock, "
+                  f"K1 launches {S.LAUNCHES - k1} [{card}]", flush=True)
+            if name == "analysis" and S.LAUNCHES == k1:
+                raise AssertionError("analysis_torch did not launch K1")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "crosscheck_torch.py"), "1000", "100",
+             "hann", "1", src, "--fd32"], capture_output=True, text=True, timeout=600,
+            cwd=str(ROOT))
+        print("".join(f"    | {line}\n" for line in proc.stdout.splitlines()[-12:]), end="")
+        print(f"  crosscheck_torch --fd32: exit {proc.returncode}, "
+              f"{time.perf_counter() - t0:.2f} s host clock [{card}]", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"crosscheck_torch failed:\n{proc.stderr[-3000:]}")
+    return res
 
 
 def sharded_timings(jobs: dict, card: str) -> dict:
@@ -1585,6 +1652,15 @@ def main() -> int:
             done("part d")
             shard_times = sharded_timings(jobs, card)
             done("part d's timings")
+            # part e begins here, in part d's group, and goes on after
+            # phase 5: once another process had used the card (the
+            # crosscheck's subprocess), every later device_time of this
+            # process lost 1-3 of 10 K1 events (PERF.md section 6)
+            S.LAUNCHES = Q.LAUNCHES = 0
+            t_tools = time.perf_counter()
+            tools = {"bench_mesh": bench_mesh(card)}
+            part_e = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+            t_tools = time.perf_counter() - t_tools
         finally:
             dist.destroy_process_group()
 
@@ -1594,6 +1670,18 @@ def main() -> int:
     times.update(driver_timings(T, P, dev, card, times["k1_planar_float32"][0]))
     times.update(stream_timings(T, dev, card, times["k1_planar_float32"][0]))
     done("phases 4 and 5")
+    S.LAUNCHES = Q.LAUNCHES = 0
+    t0_tools = time.perf_counter()
+    tools.update(tools_path(T, S, Q, card))
+    torch.cuda.synchronize()
+    part_e = {"spectra": part_e["spectra"] + S.LAUNCHES, "scan": part_e["scan"] + Q.LAUNCHES}
+    print(f"tools part launches: {part_e}", flush=True)
+    for name, n in part_e.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the tools part")
+        launches[name] += n
+    print(f"elapsed: part e took {t_tools + time.perf_counter() - t0_tools:.1f} s", flush=True)
+    done("part e")
     print(f"main path errors: {json.dumps(errs)}", flush=True)
     print(f"sharded timings (wall ms, device ms, peak GiB): {json.dumps(shard_times)}",
           flush=True)

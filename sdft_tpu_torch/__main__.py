@@ -1,4 +1,5 @@
-"""``python -m sdft_tpu_torch <7 driver args> [--fd32] [--block N] [--device D]``
+"""``python -m sdft_tpu_torch <7 driver args> [--fd32] [--block N] [--device D]``,
+``... bench [m] [block] [runs]`` and ``... trace <logdir> <7 driver args>``
 (see ``sdft_tpu_torch.cli``)."""
 
 import sys

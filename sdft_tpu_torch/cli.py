@@ -31,8 +31,13 @@ Optional flags after the 7 positionals:
                 tile*T rounded up to >= 16000 samples; the trailing partial
                 block runs on the single-device path with the carried state
 
-The ``bench`` and ``trace`` subcommands of ``python -m sdft_tpu`` are not
-ported yet (ROADMAP queue 1, item 12).
+Subcommands, as ``python -m sdft_tpu``'s:
+
+    python -m sdft_tpu_torch bench [m] [block] [runs] [--device D] [--mesh CxTxB]
+    python -m sdft_tpu_torch trace <logdir> <7 driver args> [flags]
+
+``bench`` is ``profiling.bench_cli``; ``trace`` runs the driver inside
+``profiling.trace``, which writes a Chrome trace into ``logdir``.
 """
 
 from __future__ import annotations
@@ -66,10 +71,13 @@ def _value(extras: list, flag: str) -> str:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in ("bench", "trace"):
-        raise NotImplementedError(
-            f"the {argv[0]} subcommand is not ported yet (ROADMAP queue 1, "
-            "item 12)")
+    if argv and argv[0] == "bench":
+        from .profiling import bench_cli
+        return bench_cli(argv[1:])
+    if argv and argv[0] == "trace" and len(argv) > 1:
+        from .profiling import trace
+        with trace(argv[1]):
+            return main(argv[2:])
     if len(argv) < 7:
         print(__doc__)
         return 1

@@ -12,6 +12,8 @@ round trip atol 1e-5 (tests/test_torch_lti.py), driver spectra 2e-7 and
 samples 1e-4, accumulators 4*eps32 per summed term.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,12 +60,61 @@ def _plans(m, precision=F32, **kw):
 
 # -- the error-free primitives ----------------------------------------------------
 
+def _flushes_subnormals() -> bool:
+    """Whether this thread flushes float32 subnormals to zero (FTZ/DAZ)."""
+    return bool(np.float32(1e-39) * np.float32(1.0) == 0)
+
+
+@contextlib.contextmanager
+def _gradual_underflow():
+    """Subnormals kept on this thread inside the block, and the mode put
+    back after it.  A shared library built with -ffast-math (the native
+    oracle, ``sdft_tpu/oracle/build.py``) sets FTZ and DAZ when it loads,
+    for the rest of the process; the 1000-element torch ops below run on
+    the calling thread."""
+    before = _flushes_subnormals()
+    torch.set_flush_denormal(False)
+    try:
+        yield
+    finally:
+        torch.set_flush_denormal(before)
+
+
+@pytest.fixture
+def gradual_underflow():
+    with _gradual_underflow():
+        assert not _flushes_subnormals()
+        yield
+
+
 @pytest.mark.parametrize("scale", [1.0, 1e-6, 1e18])
-def test_error_free_primitives(scale):
+def test_error_free_primitives(scale, gradual_underflow):
     """two_sum / two_prod are exact, at unit, small and large magnitudes
     (the products' low parts stay above the subnormal range, the products
     below overflow), two_sum also among subnormals, and the port's
     primitives equal the JAX ones bit for bit."""
+    _check_error_free_primitives(scale)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-6, 1e18])
+def test_error_free_primitives_after_a_flush_to_zero_library_loads(scale):
+    """The same checks with FTZ/DAZ set first, as loading the native oracle
+    sets them in a worker that ran its tests before this file: exact inside
+    the guard, and the mode is as it was found afterwards."""
+    before = _flushes_subnormals()
+    torch.set_flush_denormal(True)
+    try:
+        assert _flushes_subnormals()
+        with _gradual_underflow():
+            assert not _flushes_subnormals()
+            _check_error_free_primitives(scale)
+        assert _flushes_subnormals()
+    finally:
+        torch.set_flush_denormal(before)
+    assert _flushes_subnormals() == before
+
+
+def _check_error_free_primitives(scale):
     rng = np.random.default_rng(1)
     a = (rng.standard_normal(1000) * scale).astype(np.float32)
     b = (rng.standard_normal(1000) * 1e-6 * scale).astype(np.float32)
