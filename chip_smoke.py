@@ -68,12 +68,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                K2 must have been launched.
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
-               inputs, at the main path's shapes;
+               inputs, at the main path's shapes; the five probes also at a
+               ragged shape (37 tiles, m = 1000) that the persistent grid
+               does not divide;
   5. timings   device times (torch.profiler) of each kernel and its plain
                version at m = 4096 on 65536-sample blocks (K1, all five
                store forms, each beside the bytes it moves, its bound and
                its share of the bound), m = 1000 on 8000-sample blocks (K2)
-               and the probes at 512 tiles; torch.stft at hop 1 beside K1
+               and the five probes at 512 tiles (CUDA events), each beside
+               its bound and its share of it; torch.stft at hop 1 beside K1
                (its library yardstick, held against K1's spectra); ``sdft``
                on 8 channels of 32768 (device, wall, peak memory: each
                channel's spectra written in place); the
@@ -352,39 +355,30 @@ def cli_wav(tmp: str) -> str:
     return src
 
 
-def probe_bounds(P, nt: int = 512) -> dict:
-    """Bounds of the probes' two TPU functions at the main path's shapes
-    (m = 4096, K = 128, PAD = 64, nt tiles): the rows of c0 read, the
-    thi/tlo tiles, the tables of "tables", and two (K, m) f32 planes per
-    tile stored; six bf16 products of (K, K) by (K, m) per tile on the
-    tensor cores, and about 8 f32 flops per stored value."""
-    m, K, pad = 4096, 128, 64
-    W = m + 2 * pad
-    out = 2 * nt * K * m * 4
-    read = nt * 2 * W * 4 + 2 * nt * K * K * 2
-    tc, f32 = 12 * nt * K * K * m, 8 * 2 * nt * K * m
-    res = {"full": bound(read + out, f32, tc),
-           "tables": bound(read + out + 2 * K * W * (4 + 2), f32, tc)}
-    for v, (b_ms, b_by) in res.items():
-        print(f"  kparts {v} nt={nt}: bound {b_ms:.4f} ms ({b_by})", flush=True)
-    return res
+#: a probe shape the persistent grid does not divide: 37 tiles over 8 (store,
+#: vpu: 16) blocks per span, and m = 1000 = 15 spans of 64 columns and one of 40
+RAGGED_PROBE = dict(nt=37, m=1000, K=128, pad=64)
 
 
 def probes_vs_plain(P, dev) -> dict:
     """Phase 4, the probes: each variant against its plain version on the
-    same seeded inputs at 512 tiles.  store and vpu 2e-6 abs; the products'
-    f32 sums run in another order on the tensor cores, so dots, full and
-    tables are held at 1e-5 of the products' size (the convolution cancels
-    most of it in the output)."""
+    same seeded inputs at 512 tiles, and at a ragged shape (RAGGED_PROBE).
+    store and vpu 2e-6 abs; the products' f32 sums run in another order on
+    the tensor cores, so dots, full and tables are held at 1e-5 of the
+    products' size (the convolution cancels most of it in the output).
+    Returns the errors at 512 tiles."""
     out = {}
-    p = P.probe_inputs(512, seed=SEED + 13, device=dev)
-    for v in P.VARIANTS:
-        got = P.launch_kparts(v, p)
-        want = P.kparts_reference(v, p)
-        limit = 2e-6 if v in ("store", "vpu") else 1e-5 * P.product_scale(v, p)
-        out[v] = max(maxerr(g, w) for g, w in zip(got, want))
-        gate(f"kparts {v} vs plain (abs)", out[v], limit)
-        del got, want
+    for tag, p in (("", P.probe_inputs(512, seed=SEED + 13, device=dev)),
+                   (" ragged", P.probe_inputs(**RAGGED_PROBE, seed=SEED + 18, device=dev))):
+        for v in P.VARIANTS:
+            got = P.launch_kparts(v, p)
+            want = P.kparts_reference(v, p)
+            limit = 2e-6 if v in ("store", "vpu") else 1e-5 * P.product_scale(v, p)
+            err = max(maxerr(g, w) for g, w in zip(got, want))
+            gate(f"kparts {v}{tag} (nt={p.nt}, m={p.m}) vs plain (abs)", err, limit)
+            if not tag:
+                out[v] = err
+            del got, want
     return out
 
 
@@ -639,13 +633,16 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
     # CUDA events: each call is one launch of ~1 ms or more (the profiler
     # has summed one launch of five for the store probe)
     p = P.probe_inputs(512, seed=SEED + 17, device=dev)
+    bounds = profiling.kernel_part_bounds(512)
     for v in P.VARIANTS:
         k = wall_time(lambda: P.launch_kparts(v, p), 5, 1)
         pl = wall_time(lambda: P.kparts_reference(v, p), 2, 1)
+        b_ms, b_by = bounds[v]
         print(f"timing: kparts {v} nt=512: kernel {k:.4f} ms ({k * 1e3 / 512:.3f} "
-              f"us/tile, {2 * 512 * 128 * 4096 * 4 / k / 1e6:.1f} GB/s stored), plain "
-              f"{pl:.4f} ms (CUDA events) [{card}]", flush=True)
-        res[f"kparts_{v}"] = (k, pl)
+              f"us/tile, {2 * 512 * 128 * 4096 * 4 / k / 1e6:.1f} GB/s stored), bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / k:.1%} of the bound, plain {pl:.4f} ms "
+              f"(CUDA events) [{card}]", flush=True)
+        res[f"kparts_{v}"] = (k, pl, b_ms, b_by)
     print(f"timing: K1 planar f32 per tile {k1_ms * 1e3 / 512:.3f} us against the store "
           f"probe's {res['kparts_store'][0] * 1e3 / 512:.3f} us [{card}]", flush=True)
     return res
@@ -1564,22 +1561,34 @@ def cards_main(n: int) -> int:
 
 def print_ptxas(log: pathlib.Path) -> None:
     """ptxas's registers and spills of each K1/K2 instantiation (store
-    form, vector stores, window halo), from the build log."""
+    form, vector stores, window halo) and of each probe instantiation (body,
+    table inputs, fast; its shared memory is dynamic, csrc/kparts.cu
+    smem_bytes), from the build log, and any performance remark it made."""
     import re
 
-    found = 0
-    for block in log.read_text().split("Compiling entry function")[1:]:
-        name = re.match(r" '_ZN4sdft\d+(spectra|scan)_kernelILi(\d)ELb(\d)ELi(\d)E", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
-        if name and regs and spill:
-            found += 1
-            kind, store, vec, halo = name.groups()
-            print(f"ptxas: {kind}_kernel<store={store}, vector={vec}, halo={halo}>: "
-                  f"{regs.group(1)} registers, spill {spill.group(1)}/{spill.group(2)} B",
-                  flush=True)
-    if not found:
-        print("ptxas: no K1/K2 entries found in the build log", flush=True)
+    from sdft_tpu_torch.kernels import _build
+
+    entries, remarks = _build.ptxas_report(log)
+    found = {"spectra": 0, "scan": 0, "kparts": 0}
+    for name, regs, st, ld, smem in entries:
+        k12 = re.match(r"_ZN4sdft\d+(spectra|scan)_kernelILi(\d)ELb(\d)ELi(\d)E", name)
+        kp = re.match(r"_ZN6kparts13kparts_kernelILi(\d)ELb(\d)ELb(\d)E", name)
+        if k12:
+            kind, store, vec, halo = k12.groups()
+            label = f"{kind}_kernel<store={store}, vector={vec}, halo={halo}>"
+        elif kp:
+            kind = "kparts"
+            label = "kparts_kernel<body={}, tables={}, fast={}>".format(*kp.groups())
+        else:
+            continue
+        found[kind] += 1
+        print(f"ptxas: {label}: {regs} registers, spill {st}/{ld} B, static smem {smem} B",
+              flush=True)
+    for line in remarks:
+        print(f"ptxas: {line}", flush=True)
+    for kind, n in found.items():
+        if not n:
+            raise AssertionError(f"no {kind} kernel in the build log {log}")
 
 
 def main() -> int:
@@ -1691,7 +1700,6 @@ def main() -> int:
 
     src = "sdft_tpu_torch/kernels/csrc/"
     k1, k2 = times["k1_planar_float32"], times["k2_packed"]
-    kp = probe_bounds(P)
     kernels = [
         {"name": "spectra", "route": "cuda", "source": src + "spectra.cu",
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:509",
@@ -1709,12 +1717,14 @@ def main() -> int:
          "replaces": "scripts/archive/exp_kparts.py:41",
          "launches": launches["kparts_make"], "max_abs_err": vs_plain["kparts_full"],
          "ms": times["kparts_full"][0], "plain_ms": times["kparts_full"][1],
-         "bound_ms": kp["full"][0], "bound_by": kp["full"][1], "library_ms": None},
+         "bound_ms": times["kparts_full"][2], "bound_by": times["kparts_full"][3],
+         "library_ms": None},
         {"name": "kparts_tables", "route": "cuda", "source": src + "kparts.cu",
          "replaces": "scripts/archive/exp_kparts.py:215",
          "launches": launches["kparts_tables"], "max_abs_err": vs_plain["kparts_tables"],
          "ms": times["kparts_tables"][0], "plain_ms": times["kparts_tables"][1],
-         "bound_ms": kp["tables"][0], "bound_by": kp["tables"][1], "library_ms": None},
+         "bound_ms": times["kparts_tables"][2], "bound_by": times["kparts_tables"][3],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ test/main.py).
 
 Runs the 7-argument driver protocol through the port's CLI
 (``sdft_tpu_torch.cli.main``) and through the native C++ oracle engine
-(``sdft_tpu.oracle``), and holds the port's DFT matrix and WAV to the
+(``sdft_tpu_torch.oracle``, built from the port's own sources under
+``sdft_tpu_torch/native/``), and holds the port's DFT matrix and WAV to the
 oracle's; checks the oracle's two engines against each other and its
 extended (fd80) tier against its double tier; holds the port's float32x2
 tier to the fd80 engine at 1e-9 of scale; and correlates the port's
@@ -29,7 +30,6 @@ Defaults: 1000 100 hann 1, a seeded 8 s 44.1 kHz noise WAV written with
 saves side-by-side port/oracle/STFT spectrograms there (matplotlib).
 """
 
-import os
 import pathlib
 import sys
 import tempfile
@@ -115,8 +115,7 @@ def main(argv=None):
         stftx = STFT(framesize, hopsize, window=window, device=device).stft(xd)
 
         # -- the oracle, loaded only now (it sets FTZ/DAZ when it loads)
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        from sdft_tpu.oracle import NativeSDFT, NativeSDFT2
+        from sdft_tpu_torch.oracle import NativeSDFT, NativeSDFT2
 
         print("native oracle pass...", flush=True)
         eng = NativeSDFT(dftsize, window, latency, td_bits=64)

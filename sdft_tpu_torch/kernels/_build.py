@@ -17,6 +17,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,7 +42,7 @@ SIGNATURES = {
                            _I, _F, _I, _P),
     "sdft_spectra_occupancy": (_I,),
     "sdft_scan_occupancy": (_I,),
-    "sdft_kparts_occupancy": (_I, _I),
+    "sdft_kparts_occupancy": (_I, _I, _I, _I),
 }
 
 
@@ -104,6 +105,24 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_report(log: pathlib.Path | None = None):
+    """What ptxas said of each kernel in the build log: a list of (mangled
+    name, registers, spill-store bytes, spill-load bytes, static shared
+    bytes), and the list of its performance remarks."""
+    text = (log or library_path().with_suffix(".log")).read_text()
+    entries = []
+    for block in text.split("Compiling entry function")[1:]:
+        name = re.match(r" '(\w+)'", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        if name and regs and spill:
+            entries.append((name.group(1), int(regs.group(1)), int(spill.group(1)),
+                            int(spill.group(2)), int(smem.group(1)) if smem else 0))
+    remarks = [ln.strip() for ln in text.splitlines() if "Potential Performance Loss" in ln]
+    return entries, remarks
 
 
 def check(err: int, what: str) -> None:

@@ -1,9 +1,9 @@
-"""Time this version's K1 and K2 against another version of the port, in
-turns on one card.
+"""Time this version's K1, K2 and probes of K1's parts against another
+version of the port, in turns on one card.
 
     git archive <commit> sdft_tpu_torch | tar -x -C DIR
     mv DIR/sdft_tpu_torch DIR/sdft_tpu_torch_old
-    python -m sdft_tpu_torch.kernels.compare_bodies DIR [K1,K2 ...]
+    python -m sdft_tpu_torch.kernels.compare_bodies DIR [--probes-only] [K1,K2 ...]
 
 DIR holds the other version's package under the name ``sdft_tpu_torch_old``
 (its imports are relative, so it loads beside this one and builds its own
@@ -14,7 +14,11 @@ m = 1000, B = 8000 it prints each body's largest difference from the other
 version on the same inputs and the profiler's device time of its kernel,
 in turns (other, pairs, pairs reversed, other), then ``sdft`` on an 8 x
 32768 channel batch (planar f32) of both versions: device time, wall time
-and peak memory above the inputs.
+and peak memory above the inputs.  Last (alone with --probes-only) the five
+probes (``kernels.kparts``) at 512 tiles, m = 4096, K = 128, PAD = 64: each
+variant's largest difference from the other version on the same seeded
+inputs and the time per launch between CUDA events (5 launches after 2), in
+turns (other, this, this, other).
 """
 
 from __future__ import annotations
@@ -73,10 +77,51 @@ def build_variant(k1: int, k2: int):
     return lib, log
 
 
+def compare_probes(dev, card: str, nt: int = 512) -> None:
+    """The five probes of this version and the other, in turns."""
+    from sdft_tpu_torch_old.kernels import kparts as PO
+
+    from ..profiling import wall_time
+    from . import kparts as P
+
+    PO.library()
+    P.library()
+    p = P.probe_inputs(nt, seed=11, device=dev)
+    po = PO.Probe(*p)
+    calls = {"other": lambda v: PO.launch_kparts(v, po), "this": lambda v: P.launch_kparts(v, p)}
+    for v in P.VARIANTS:
+        got, want = calls["this"](v), calls["other"](v)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        print(f"kparts {v} nt={nt}: largest difference from the other version {err:.3e} "
+              f"(outputs up to {scale:.3e})", flush=True)
+        del got, want
+    order = ("other", "this", "this", "other")
+    times = {}
+    for who in order:
+        for v in P.VARIANTS:
+            times.setdefault((who, v), []).append(wall_time(lambda: calls[who](v), 5, 2))
+    print(f"kparts ms per launch (CUDA events), in turns {' '.join(order)} (nt={nt}, m=4096, "
+          f"K=128, PAD=64) [{card}]", flush=True)
+    for v in P.VARIANTS:
+        print(f"  {v}: " + "; ".join(
+            f"{w} {'/'.join(f'{t:.4f}' for t in times[(w, v)])}" for w in ("other", "this")),
+            flush=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("compare_bodies needs a CUDA device")
+    probes_only = "--probes-only" in argv
+    argv = [a for a in argv if a != "--probes-only"]
     sys.path.insert(0, os.path.abspath(argv[0]))
+    if probes_only:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip()
+        print(card, flush=True)
+        compare_probes(torch.device("cuda", 0), card)
+        return 0
     import sdft_tpu_torch as T
     import sdft_tpu_torch_old as TO
     from sdft_tpu_torch_old.kernels import scan as QO, spectra as SO
@@ -175,6 +220,9 @@ def main(argv) -> int:
               f"{a.elapsed_time(b) / 3:.4f} ms, peak {peak / 2**30:.3f} GiB above the "
               f"inputs [{card}]", flush=True)
     S.STRIP, Q.STRIP, S.library, Q.library = saved
+    del batch, st, sto, xs
+    torch.cuda.empty_cache()
+    compare_probes(dev, card)
     return 0
 
 

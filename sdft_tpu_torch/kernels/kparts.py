@@ -4,7 +4,9 @@ matrix products and its carry-rotation + window-convolution chain.
 Counterpart of the archived TPU microbenchmarks ``make.<locals>.run``
 (scripts/archive/exp_kparts.py:41; bodies ``store_only``, ``dots_only``,
 ``vpu_only``, ``full``) and ``mk.<locals>.run`` (:215; the ``full`` body
-on table inputs), both in one CUDA kernel (csrc/kparts.cu).  Variants:
+on table inputs), both in one CUDA kernel (csrc/kparts.cu: persistent
+blocks, one wave, each owning 64 output columns of a range of tiles).
+Variants:
 
   * "store"  — the table dmf[:, PAD:PAD+m], stored (the output floor);
   * "dots"   — (thi@b + thi@b + tlo@b)[:, PAD:PAD+m], b = bf16(dmf),
@@ -24,13 +26,13 @@ the four bodies of ``make``, "tables" for ``mk``.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT_PRECISION, fp32_matmul
+from ..state import require_device
 from ._build import check, library
 
 VARIANTS = ("store", "dots", "vpu", "full", "tables")
@@ -38,8 +40,6 @@ VARIANTS = ("store", "dots", "vpu", "full", "tables")
 BODIES = {"store": 0, "dots": 1, "vpu": 2, "full": 3, "tables": 3}
 #: output columns per thread block (csrc/kparts.cu: BN)
 BLOCK_COLS = 64
-#: tiles each thread block walks (it builds its table columns once for them)
-TILES_PER_BLOCK = 8
 
 #: launches of the CUDA kernel, by ported TPU function (the plain version
 #: does not count)
@@ -73,11 +73,13 @@ class Probe(NamedTuple):
 
 
 def probe_inputs(nt: int, m: int = 4096, K: int = 128, pad: int = 64,
-                 seed: int = 0, device="cpu") -> Probe:
-    """Seeded inputs at the script's shapes (m = 4096, K = 128, PAD = 64
-    by default): c0 uniform in [-1, 1], thi standard normal and tlo 2^-8 of
+                 seed: int = 0, device="cuda:0") -> Probe:
+    """Seeded inputs on ``device`` (the card unless the caller asks for the
+    CPU; raises without one) at the script's shapes (m = 4096, K = 128,
+    PAD = 64 by default): c0 uniform in [-1, 1], thi standard normal and tlo 2^-8 of
     that scale, both rounded to bf16; d1, d2 uniform in [-1, 1] and b1, b2
     their bf16 roundings (as the script derives b from d, :187-188)."""
+    device = require_device(device)
     rng = np.random.default_rng(seed)
     W = m + 2 * pad
 
@@ -163,8 +165,14 @@ def _check(p: Probe) -> None:
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {dev}")
     K, nt, W = p.K, p.nt, p.W
-    if K % 16 or not 16 <= K <= 128 or p.pad < 1 or p.m < 1 or nt < 1:
-        raise ValueError(f"bad probe shape: m={p.m}, K={K}, pad={p.pad}, nt={nt}")
+    if K % 16 or not 16 <= K <= 128:
+        raise ValueError(f"K must be a multiple of 16 in [16, 128] (the tensor-core "
+                         f"tiles are 16 deep and a block holds 128 rows), got {K}")
+    if p.pad < 1 or p.m < 1 or nt < 1:
+        raise ValueError(f"need m >= 1, pad >= 1 and one tile or more, got m={p.m}, "
+                         f"pad={p.pad}, nt={nt}")
+    if K * W >= 2 ** 31:
+        raise ValueError(f"K * (m + 2 pad) = {K * W} overflows the table's 32-bit index")
     for name, t, shape, dtype in (
             ("c0", p.c0, (nt * 8, W), torch.float32),
             ("thi", p.thi, (nt * K, K), torch.bfloat16),
@@ -178,6 +186,32 @@ def _check(p: Probe) -> None:
                              f"on {t.device}")
 
 
+def tile_splits(nt: int, m: int, wave: int) -> int:
+    """How many blocks share a column span's nt tiles, so that the grid
+    (spans x splits) is one wave of ``wave`` resident blocks or less.  Raises
+    when m has more spans than a wave has blocks."""
+    spans = -(-m // BLOCK_COLS)
+    if spans > wave:
+        raise ValueError(f"m={m} has {spans} spans of {BLOCK_COLS} columns, more than "
+                         f"the {wave} blocks of one wave")
+    return max(1, min(nt, wave // spans, 65535))
+
+
+def tile_range(split: int, nt: int, splits: int) -> range:
+    """The tiles block (span, split) walks (csrc/kparts.cu: t0, t1)."""
+    return range(split * nt // splits, (split + 1) * nt // splits)
+
+
+def wave_blocks(variant: str, p: Probe) -> int:
+    """Resident blocks of the variant's instantiation on the card: SMs times
+    blocks per SM."""
+    per_sm = library().sdft_kparts_occupancy(BODIES[variant], int(variant == "tables"),
+                                             p.m, p.K)
+    if per_sm < 1:
+        raise RuntimeError(f"kparts {variant}: no block fits an SM at m={p.m}, K={p.K}")
+    return per_sm * torch.cuda.get_device_properties(p.c0.device).multi_processor_count
+
+
 def launch_kparts(variant: str, p: Probe):
     """Launch the probe kernel on CUDA tensors; returns (o1, o2)."""
     if variant not in VARIANTS:
@@ -187,15 +221,15 @@ def launch_kparts(variant: str, p: Probe):
     o1 = torch.empty((p.nt * p.K, p.m), dtype=torch.float32, device=dev)
     o2 = torch.empty_like(o1)
     tables = variant == "tables"
-    grid_y = min(p.nt, 65535, math.ceil(p.nt / TILES_PER_BLOCK))
     with torch.cuda.device(dev):
+        splits = tile_splits(p.nt, p.m, wave_blocks(variant, p))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_kparts_launch(
             p.c0.data_ptr(), p.thi.data_ptr(), p.tlo.data_ptr(),
             *((p.d1.data_ptr(), p.d2.data_ptr(), p.b1.data_ptr(), p.b2.data_ptr())
               if tables else (None,) * 4),
             o1.data_ptr(), o2.data_ptr(), p.m, p.K, p.pad, p.nt, BODIES[variant],
-            angle_scale(p.m), grid_y, stream)
+            angle_scale(p.m), splits, stream)
     check(err, "sdft_kparts_launch")
     LAUNCHES["tables" if tables else "make"] += 1
     return o1, o2

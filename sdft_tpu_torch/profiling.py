@@ -18,7 +18,8 @@
   * :func:`bench_cli`, :func:`bench_mesh_cli` — ``python -m sdft_tpu_torch
     bench [m] [block] [runs] [--device D] [--mesh CxTxB]``;
   * :func:`kernel_parts` — drives the probes of K1's parts
-    (``kernels.kparts``) on the card and times each.
+    (``kernels.kparts``) on the card and times each;
+    :func:`kernel_part_bounds` — the least time each could take.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ __all__ = ["trace", "OpCost", "analysis_cost", "synthesis_cost",
            "roundtrip_cost", "benchmark", "benchmark_marginal",
            "device_peaks", "device_time", "wall_time", "bound",
            "scaling_projection", "measure_scaling_proxy", "bench_cli",
-           "bench_mesh_cli", "kernel_parts"]
+           "bench_mesh_cli", "kernel_parts", "kernel_part_bounds"]
 
 
 @contextlib.contextmanager
@@ -569,6 +570,24 @@ def bench_cli(argv) -> int:
 
 
 # -- the probes of K1's parts ------------------------------------------------------
+
+def kernel_part_bounds(nt: int = 512, m: int = 4096, K: int = 128, pad: int = 64) -> dict:
+    """(ms, "bytes" or "operations") of each probe's bound on an H100: the
+    rows of c0 read (vpu, full, tables), the thi/tlo tiles (dots, full,
+    tables), the table inputs of "tables", and two (K, m) f32 planes per
+    tile stored; six bf16 products of (K, K) by (K, m) per tile on the
+    tensor cores; about 8 f32 flops per stored value in the rotation and
+    the convolution."""
+    W = m + 2 * pad
+    out = 2 * nt * K * m * 4
+    c0, tiles = nt * 2 * W * 4, 2 * nt * K * K * 2
+    tc, f32 = 12 * nt * K * K * m, 8 * 2 * nt * K * m
+    return {"store": bound(out),
+            "dots": bound(tiles + out, 0, tc),
+            "vpu": bound(c0 + out, f32),
+            "full": bound(c0 + tiles + out, f32, tc),
+            "tables": bound(c0 + tiles + out + 2 * K * W * (4 + 2), f32, tc)}
+
 
 def kernel_parts(nt: int = 512, m: int = 4096, K: int = 128, pad: int = 64,
                  variants=_kparts.VARIANTS, seed: int = 0, reps: int = 3,
