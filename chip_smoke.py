@@ -14,7 +14,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. device    require CUDA; print the card's name and power limit, the
                torch version and both TF32 flags;
   2. build     build the kernels from sdft_tpu_torch/kernels/csrc;
-  3. main path, in three parts, each with the launch counts set to 0 just
+  3. main path, in six parts, each with the launch counts set to 0 just
                before it and read just after:
      a. spectra ``sdft``/``sdft_power`` at the flagship size (m = 4096,
                Hann, float32, two chained 16384-sample blocks) and at
@@ -65,7 +65,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the card (``analysis_torch`` through K1); and
                ``scripts/crosscheck_torch.py`` at m = 1000, hop = 100,
                --fd32 against the native oracle, in a subprocess.  K1 and
-               K2 must have been launched.
+               K2 must have been launched;
+     f. graphs every graphed path (``sdft_tpu_torch.graphs``: the
+               collapsed round trip at 1 x 65536 and 8 x 32768, the driver
+               chain at hop = 100, 4 and 1 through K2, mono and a channel
+               batch, K2's fused round trip, ``sdft_hopped``,
+               ``roundtrip_hopped_block`` and ``refresh``) against its
+               eager run under ``graphs.disabled()``, bit for bit; three
+               calls on one graph leave the first call's outputs as they
+               were; each cached call adds its K2 launches to the count;
+               peak memory graphed and eager, each graph's capture time and
+               pool bytes.  K2 must have been launched.  (Parts a-e run
+               the graphs too: they are the default on the card.)
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
                inputs, at the main path's shapes; the five probes also at a
@@ -93,7 +104,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                their peak device memory; each sharded program of part d
                beside its unsharded call (wall, device, idle share, in
                turns), and the flagship K1 program's device time by
-               kernel.
+               kernel; part f's cells eager against graphed in turns (wall,
+               device, idle per block), ``Streamer.run`` and ``run_hopped``
+               eager against graphed, and the ``bench 4096 16384 3`` rows
+               eager against graphed.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Inputs are made from a fixed seed.
@@ -911,6 +925,202 @@ def stream_timings(T, dev, card: str, k1_ms: float) -> dict:
     return res
 
 
+def same(a, b) -> bool:
+    """Whether two nests of tensors are equal bit for bit."""
+    from sdft_tpu_torch import graphs
+
+    la, lb = graphs.leaves(a), graphs.leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def graph_cells(T, Q, dev) -> dict:
+    """The graphed paths on the cells of PERF.md section 5, on carried
+    (non-zero) states: {label: (call, blocks per call, K2 launches per
+    call)}."""
+    from sdft_tpu_torch.ops import lti
+
+    f32 = T.FAST_PRECISION
+    big = T.Plan(4096, window="hann", precision=f32)
+    drv = T.Plan(1000, window="hann", precision=f32)
+    x = signal(8 * 32768, SEED + 60, dev)
+    lead = signal(3000, SEED + 61, dev)
+    st1 = T.sdft(big, T.init_state(big, device=dev), lead)[0]
+    st8 = T.sdft(big, T.init_state(big, channels=8, device=dev), lead[:1000].repeat(8, 1))[0]
+    sd = T.sdft(drv, T.init_state(drv, device=dev), lead)[0]
+    sd2 = T.sdft(drv, T.init_state(drv, channels=2, device=dev), lead[:1000].repeat(2, 1))[0]
+    return {
+        "roundtrip 1x65536 m=4096": (lambda: T.roundtrip(big, st1, x[:65536]), 1, 0),
+        "roundtrip 8x32768 m=4096": (lambda: T.roundtrip(big, st8, x.reshape(8, 32768)), 1, 0),
+        "roundtrip_hopped hop=100 m=1000 8x4000": (
+            lambda: T.roundtrip_hopped(drv, sd, x[:32000].reshape(8, 4000), 100), 8, 0),
+        "roundtrip_hopped hop=100 m=1000 8x16000": (
+            lambda: T.roundtrip_hopped(drv, sd, x[:128000].reshape(8, 16000), 100), 8, 0),
+        "roundtrip_hopped hop=4 refresh_every=2 m=1000 4x4000": (
+            lambda: T.roundtrip_hopped(drv, sd, x[:16000].reshape(4, 4000), 4,
+                                       refresh_every=2), 4, 0),
+        "roundtrip_hopped hop=1 (K2) m=1000 8x8000": (
+            lambda: T.roundtrip_hopped(drv, sd, x[:64000].reshape(8, 8000), 1), 8, 8),
+        "roundtrip_hopped hop=1 (K2) m=1000 4x2x2000 refresh_every=2": (
+            lambda: T.roundtrip_hopped(drv, sd2, x[:16000].reshape(4, 2, 2000), 1,
+                                       refresh_every=2), 4, 8),
+        "roundtrip_block_fused (K2) m=4096 16384": (
+            lambda: Q.roundtrip_block_fused(big, st1, x[:16384]), 1, 1),
+        "sdft_hopped hop=100 m=1000 16000": (
+            lambda: T.sdft_hopped(drv, sd, x[:16000], 100), 1, 0),
+        "roundtrip_hopped_block hop=100 refresh m=1000 16000": (
+            lambda: lti.roundtrip_hopped_block(drv, sd, x[:16000], 100, True), 1, 0),
+        "refresh m=1000": (lambda: T.refresh(drv, sd), 1, 0),
+    }
+
+
+def graph_path(T, Q, dev, card: str, cells: dict) -> dict:
+    """Part f: every graphed path of ``graph_cells`` against its eager run
+    under ``graphs.disabled()`` on the same inputs, bit for bit (parts a-c
+    already hold the graphed results against float64, since the graphs are
+    the default).  Three calls on one graph: the first call's outputs must
+    be unchanged after the next two, which get the same inputs and must
+    return the same outputs.  A cached graph's call must add its K2
+    launches to ``kernels.scan.LAUNCHES``.  Prints each path's peak memory
+    graphed and eager, and each graph's capture time and pool bytes."""
+    from sdft_tpu_torch import graphs
+
+    out = {}
+    for label, (call, _, k2) in cells.items():
+        first = call()
+        held = graphs.clone(first)
+        q = Q.LAUNCHES
+        second = call()
+        launched = Q.LAUNCHES - q
+        third = call()
+        with graphs.disabled():
+            eager = call()
+        torch.cuda.synchronize()
+        diff = max(maxerr(a, b) for a, b in zip(graphs.leaves(first), graphs.leaves(eager)))
+        print(f"  graphs {label}: graphed vs eager bit for bit {same(first, eager)} "
+              f"(largest difference {diff:.3e}); first call's outputs unchanged after two "
+              f"more {same(first, held)}; the same inputs again equal "
+              f"{same(second, first) and same(third, first)}; K2 launches per cached "
+              f"call {launched} (expected {k2})", flush=True)
+        if not same(first, eager):
+            raise AssertionError(f"graphs {label}: the graphed result differs from eager")
+        if not (same(first, held) and same(second, first) and same(third, first)):
+            raise AssertionError(f"graphs {label}: a later call changed a held output")
+        if launched != k2:
+            raise AssertionError(f"graphs {label}: {launched} K2 launches counted, "
+                                 f"expected {k2}")
+        del first, held, second, third, eager
+        peaks = {"graphed": peak_gib(call)}
+        with graphs.disabled():
+            peaks["eager"] = peak_gib(call)
+        print(f"  graphs {label}: peak memory above the inputs graphed "
+              f"{peaks['graphed'] * 1024:.2f} MiB, eager {peaks['eager'] * 1024:.2f} MiB "
+              f"[{card}]", flush=True)
+        out[label] = peaks
+    entries = graphs.entries()
+    for e in entries:
+        shapes = " ".join("x".join(map(str, s[0])) or "()" for s in e.key[2])
+        print(f"  graph {e.name} [{shapes}]: capture {e.capture_s * 1e3:.1f} ms (warm-up "
+              f"included), pool +{e.pool_bytes / 2**20:.1f} MiB, launches per replay "
+              f"{e.launches or '{}'}", flush=True)
+    print(f"  graphs cached: {len(entries)} of at most {graphs.MAX_GRAPHS}, pool "
+          f"{sum(e.pool_bytes for e in entries) / 2**20:.1f} MiB in all [{card}]", flush=True)
+    if len(entries) > graphs.MAX_GRAPHS:
+        raise AssertionError(f"{len(entries)} graphs cached")
+    return out
+
+
+#: the cells of ``graph_cells`` timed eager against graphed (PERF.md section 5)
+GRAPH_TIMED = ("roundtrip 1x65536 m=4096", "roundtrip 8x32768 m=4096",
+               "roundtrip_hopped hop=100 m=1000 8x4000",
+               "roundtrip_hopped hop=100 m=1000 8x16000",
+               "roundtrip_hopped hop=1 (K2) m=1000 8x8000",
+               "roundtrip_block_fused (K2) m=4096 16384")
+
+
+def graph_timings(T, dev, card: str, cells: dict) -> dict:
+    """Phase 5, this slice: eager (``graphs.disabled()``) against graphed.
+    Wall ms per block between CUDA events in turns (eager, graphed,
+    graphed, eager), device ms per block (profiler) and the device's idle
+    share; then ``Streamer.run`` (16 x 65536, m = 4096) and ``run_hopped``
+    (hop = 100, 16 x 16000) on the host clock in turns, and the ``bench
+    4096 16384 3`` rows in turns."""
+    import contextlib
+    import io
+    import re
+
+    from sdft_tpu_torch import cli, graphs
+
+    def mode(name):
+        return graphs.disabled() if name == "eager" else contextlib.nullcontext()
+
+    res = {}
+    for label in GRAPH_TIMED:
+        call, nb, _ = cells[label]
+        walls = {"eager": [], "graphed": []}
+        for m in ("eager", "graphed", "graphed", "eager"):
+            with mode(m):
+                walls[m].append(wall_time(call, 5, 1) / nb)
+        devs = {}
+        for m in ("eager", "graphed"):
+            with mode(m):
+                devs[m] = device_time(call, 3, 1) / nb
+        for m in ("eager", "graphed"):
+            w = min(walls[m])
+            print(f"timing: graphs {label} {m}: wall {'/'.join(f'{v:.4f}' for v in walls[m])} "
+                  f"ms per block, device {devs[m]:.4f} ms per block, idle "
+                  f"{max(0.0, 1 - devs[m] / w):.1%} [{card}]", flush=True)
+        print(f"timing: graphs {label}: graphed/eager wall {min(walls['graphed']) / min(walls['eager']):.3f}, "
+              f"device {devs['graphed'] / devs['eager']:.3f} [{card}]", flush=True)
+        res[label] = {m: (min(walls[m]), devs[m]) for m in walls}
+
+    m = STREAM_M
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    hplan = T.Plan(HOP_M, window="hann", precision=T.FAST_PRECISION)
+    blocks = list(host_signal(STREAM_BLOCKS * STREAM_BLOCK, SEED + 62).reshape(-1, STREAM_BLOCK))
+    hblocks = list(host_signal(16 * HOP100_BLOCK, SEED + 63).reshape(16, HOP100_BLOCK))
+
+    def streamer(name):
+        def go():
+            with mode(name):
+                for _ in T.Streamer(plan, device=dev).run(blocks):
+                    pass
+        return go
+
+    def hopped(name):
+        def go():
+            with mode(name):
+                for _ in T.Streamer(hplan, refresh_every=1, device=dev).run_hopped(
+                        hblocks, 100, chain=16):
+                    pass
+        return go
+
+    for cell, fns, n in (
+            (f"Streamer.run {STREAM_BLOCKS} x {STREAM_BLOCK} m={m}",
+             {"eager": streamer("eager"), "graphed": streamer("graphed")}, STREAM_BLOCKS),
+            (f"Streamer.run_hopped hop=100 m={HOP_M} 16 x {HOP100_BLOCK}",
+             {"eager": hopped("eager"), "graphed": hopped("graphed")}, 16)):
+        t = interleaved(fns, 5)
+        for k in t:
+            med = float(np.median(t[k]))
+            print(f"timing: graphs {cell} {k}: {spread(t[k])}, {med * 1e3 / n:.4f} ms per "
+                  f"block [{card}]", flush=True)
+        res[cell] = {k: float(np.median(t[k])) for k in t}
+
+    rows = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        buf = io.StringIO()
+        with mode(name), contextlib.redirect_stdout(buf):
+            if cli.main(["bench", "4096", "16384", "3"]) != 0:
+                raise AssertionError("bench failed")
+        rows[name].append([float(v) for v in re.findall(r"([\d.]+) ms/block marginal",
+                                                       buf.getvalue())])
+    for name, runs in rows.items():
+        print(f"timing: graphs bench 4096 16384 3 {name}: ms per block (collapsed, scan "
+              f"K2) {runs} [{card}]", flush=True)
+    res["bench"] = rows
+    return res
+
+
 #: shapes of part d, the sharded programs on a one-rank mesh
 SHARD_M, SHARD_BLOCK, SHARD_BATCH = 4096, 65536, (8, 32768)
 SHARD_SCAN_BLOCK, SHARD_F64_CHUNK = 16384, 16384
@@ -1636,6 +1846,17 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched by the stream part")
         launches[name] += n
     done("part c")
+    cells = graph_cells(T, Q, dev)
+    S.LAUNCHES = Q.LAUNCHES = 0
+    graph_peaks = graph_path(T, Q, dev, card, cells)
+    torch.cuda.synchronize()
+    part_f = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+    print(f"graphs part launches: {part_f}", flush=True)
+    if part_f["scan"] <= 0:
+        raise AssertionError("K2 was not launched by the graphed paths")
+    for name, n in part_f.items():
+        launches[name] += n
+    done("part f")
     with tempfile.TemporaryDirectory() as tmp:
         # a one-rank NCCL group of its own for part d and its timings
         import torch.distributed as dist
@@ -1678,6 +1899,7 @@ def main() -> int:
     times = timings(T, S, Q, dev, card)
     times.update(driver_timings(T, P, dev, card, times["k1_planar_float32"][0]))
     times.update(stream_timings(T, dev, card, times["k1_planar_float32"][0]))
+    times["graphs"] = graph_timings(T, dev, card, cells)
     done("phases 4 and 5")
     S.LAUNCHES = Q.LAUNCHES = 0
     t0_tools = time.perf_counter()
@@ -1692,6 +1914,9 @@ def main() -> int:
     print(f"elapsed: part e took {t_tools + time.perf_counter() - t0_tools:.1f} s", flush=True)
     done("part e")
     print(f"main path errors: {json.dumps(errs)}", flush=True)
+    print(f"graphs: peak GiB above the inputs (graphed, eager): "
+          f"{json.dumps({k: [v['graphed'], v['eager']] for k, v in graph_peaks.items()})}",
+          flush=True)
     print(f"sharded timings (wall ms, device ms, peak GiB): {json.dumps(shard_times)}",
           flush=True)
     print(f"TF32 after the run: matmul.allow_tf32="

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import graphs
 from .cplx import from_complex, pack, unpack
 from .kernels.spectra import (empty_outputs, forward_block,
                               forward_block_power, kernel_supported)
@@ -169,12 +170,19 @@ def isdft(plan: Plan, dfts) -> torch.Tensor:
     return isdft_block(plan, dfts)
 
 
-def refresh(plan: Plan, state: State) -> State:
-    """Exactly rebuild the accumulator from the delayline (drift reset)."""
+def _refresh(plan: Plan, state: State) -> State:
     if state.offset.ndim == 0:
         return refresh_state(plan, state)
     return stack_states([refresh_state(plan, batch_state(state, c))
                          for c in range(state.offset.shape[0])])
+
+
+def refresh(plan: Plan, state: State) -> State:
+    """Exactly rebuild the accumulator from the delayline (drift reset); on
+    the card as one graph (``graphs``)."""
+    if graphs.active(state.offset):
+        return graphs.run("refresh", (plan,), lambda st: _refresh(plan, st), state)
+    return _refresh(plan, state)
 
 
 def roundtrip(plan: Plan, state: State, samples, transform=None):

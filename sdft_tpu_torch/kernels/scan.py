@@ -14,15 +14,15 @@ from launch to launch.  The next accumulator comes from the same prologue.
 
 On a CPU tensor the wrapper runs the plain version
 (``forward_and_y_reference``); on a CUDA tensor it launches the kernel or
-raises.  ``LAUNCHES`` counts the kernel's launches.
+raises.  ``LAUNCHES`` counts the kernel's launches, a graph's replays
+included (``graphs``).
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
+from .. import graphs
 from ..config import fp32_matmul
 from ..ops.twiddle import synthesis_twiddles
 from ..plan import Plan
@@ -41,7 +41,7 @@ STRIP = 2
 LAUNCHES = 0
 
 
-@functools.lru_cache(maxsize=16)
+@graphs.cached(maxsize=16)
 def synthesis_row(plan: Plan, device) -> torch.Tensor:
     """(m, 2) float32 synthesis twiddles (latency and ROI folded in); one
     cached tensor per plan and device, which the kernels only read."""
@@ -108,8 +108,16 @@ def forward_and_y(plan: Plan, state: State, samples: torch.Tensor,
     return pro.state, dfts, y.to(plan.precision.td_dtype)
 
 
-def roundtrip_block_fused(plan: Plan, state: State, samples: torch.Tensor):
-    """Analysis + synthesis with no spectra stored: (state, y)."""
+def _fused_block(plan: Plan, state: State, samples: torch.Tensor):
     pro = spectra_prologue(plan, state, samples)
     _, y = _scan(plan, pro, None)
     return pro.state, y.to(plan.precision.td_dtype)
+
+
+def roundtrip_block_fused(plan: Plan, state: State, samples: torch.Tensor):
+    """Analysis + synthesis with no spectra stored: (state, y).  On the card
+    the prologue and K2 replay as one graph (``graphs``)."""
+    if graphs.active(samples):
+        return graphs.run("roundtrip_block_fused", (plan,),
+                          lambda st, x: _fused_block(plan, st, x), state, samples)
+    return _fused_block(plan, state, samples)

@@ -18,7 +18,8 @@ edges explicitly.
 
 On a CPU tensor the wrapper runs the kernel's plain PyTorch version
 (``spectra_reference``); on a CUDA tensor it launches the kernel or raises.
-``LAUNCHES`` counts the kernel's launches.
+``LAUNCHES`` counts the kernel's launches, a graph's replays included
+(``graphs``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import fp32_matmul
 from ..ops.convolve import window_convolve
 from ..ops.twiddle import mulmod, phasors, roi_mask
@@ -68,7 +70,7 @@ def kernel_supported(plan: Plan, M: int, out_dtype: str | None = None) -> bool:
             and 128 <= plan.dftsize <= MAX_DFTSIZE)
 
 
-@functools.lru_cache(maxsize=16)
+@graphs.cached(maxsize=16)
 def _spectra_tables(plan: Plan, K: int, device: torch.device):
     """(fine, phase) for tile depth K, built in float64 from exact integer
     exponents (k*i mod 2m) and cast to float32:
@@ -93,7 +95,7 @@ def _spectra_tables(plan: Plan, K: int, device: torch.device):
     return as_dev(fine), as_dev(phase)
 
 
-@functools.lru_cache(maxsize=16)
+@graphs.cached(maxsize=16)
 def _coarse_rows(plan: Plan, K: int, device: torch.device) -> torch.Tensor:
     """C[j, i] = T_i^(j*K mod 2m) for the q distinct coarse exponents
     (q = period of t*K mod 2m): (q, m) complex64."""

@@ -39,6 +39,7 @@ import math
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import fp32_matmul
 from ..cplx import pack
 from ..kernels.spectra import _prefix_tiles, kernel_supported
@@ -162,7 +163,7 @@ def _to_device(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.cached(maxsize=32)
 def _hop_consts_device(plan: Plan, K: int, fd: torch.dtype,
                        device: torch.device) -> torch.Tensor:
     """The fine table of K-sample tiles on ``device``: (K, 2m) with
@@ -174,7 +175,7 @@ def _hop_consts_device(plan: Plan, K: int, fd: torch.dtype,
     return _to_device(_interleave(fre, fim), fd, device)
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.cached(maxsize=32)
 def _lti_consts_device(plan: Plan, K: int, fd: torch.dtype,
                        device: torch.device):
     """(fine, GLT, PQ) of the collapsed round trip on ``device``: fine as
@@ -187,7 +188,7 @@ def _lti_consts_device(plan: Plan, K: int, fd: torch.dtype,
             _to_device(PQ, fd, device))
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.cached(maxsize=32)
 def _stepped_consts_device(plan: Plan, hop: int, sub: int, fd: torch.dtype,
                            device: torch.device):
     """Tables for hops shorter than DRIVER_TILE_TARGET: tiles of
@@ -337,6 +338,14 @@ def _hop_spectra(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, stepped,
     return pack(out)
 
 
+def _graphed(name: str, static: tuple, fn, state: State, samples: torch.Tensor):
+    """``fn(state, samples)``, replayed as a graph on the card (``graphs``)
+    and run eagerly elsewhere; ``static`` is what else ``fn`` depends on."""
+    if graphs.active(samples):
+        return graphs.run(name, static, fn, state, samples)
+    return fn(state, samples)
+
+
 def _batched(fn, state: State, samples: torch.Tensor):
     """Run ``fn(batched_state, (C, M) samples) -> (state, *outs)`` on a
     batched or an unbatched state; outputs lose the channel axis again
@@ -360,6 +369,7 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
 
     Returns (new_state, y) with y (M,) / (C, M) in TD precision, equal to
     ``isdft_block(sdft_block(...))`` up to rounding, with the same state.
+    On the card the block replays as one graph (``graphs``).
     """
     M = samples.shape[-1]
     K = k_tile or default_k_tile(M, plan.dftsize)
@@ -370,7 +380,8 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
         dt, c0, st = _carry(plan, st, x, fine)
         return st, _synthesize(plan, dt, c0, GLT, PQ, M)
 
-    return _batched(run, state, samples)
+    return _graphed("roundtrip_block_lti", (plan, K),
+                    lambda st, x: _batched(run, st, x), state, samples)
 
 
 def _fused_driver_nd(plan: Plan, state: State, samples: torch.Tensor, consts,
@@ -398,8 +409,8 @@ def roundtrip_hopped_block(plan: Plan, state: State, samples: torch.Tensor,
     shorter than DRIVER_TILE_TARGET take multi-hop tiles."""
     sub = driver_sub_factor(hop)
     consts = _fused_driver_consts(plan, hop, sub, samples.device)
-    return _batched(
-        lambda st, x: _fused_driver_nd(plan, st, x, consts, hop, refresh),
+    return _graphed("roundtrip_hopped_block", (plan, hop, refresh), lambda st, x: _batched(
+        lambda s, xx: _fused_driver_nd(plan, s, xx, consts, hop, refresh), st, x),
         state, samples)
 
 
@@ -424,12 +435,13 @@ def sdft_hopped(plan: Plan, state: State, samples: torch.Tensor, hop: int):
         dt, c0, st = _carry(plan, st, x, fine)
         return st, _hop_spectra(plan, dt, c0, stepped, hop, M)
 
-    return _batched(run, state, samples)
+    return _graphed("sdft_hopped", (plan, hop), lambda st, x: _batched(run, st, x),
+                    state, samples)
 
 
 # -- the exact refresh ------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
+@graphs.cached(maxsize=16)
 def _refresh_tables_device(plan: Plan, fd: torch.dtype, device: torch.device,
                            S: int = 128):
     """Split phase tables of the fused refresh: fineS[b, i] = T_i^b
@@ -489,11 +501,11 @@ def refresh_state_any(plan: Plan, st: State) -> State:
     return _refresh_fused(plan, st, fd)
 
 
-def _chain_refresh(plan: Plan, refresh_every: int, st: State, since: int):
+def _chain_refresh(refresh, refresh_every: int, st: State, since: int):
     """Refresh cadence for ``refresh_every`` > 1: (state, since)."""
     since += 1
     if since >= refresh_every:
-        return refresh_state_any(plan, st), 0
+        return refresh(st), 0
     return st, since
 
 
@@ -530,13 +542,22 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
     Returns (new_state, hop_dfts, ys): hop_dfts packed (nb, B//hop, m, 2)
     [(nb, C, B//hop, m, 2)], ys (nb, B) [(nb, C, B)].  At hop = 1, plans
     the kernels take run one K2 launch per block and channel.
+
+    On the card one block is captured as a graph (the counterpart of the
+    JAX package's ``lax.scan`` body) and replayed once per block, each
+    block's outputs copied into the stacked outputs; a refresh every N > 1
+    blocks replays a graph of its own (``graphs``).
     """
     if refresh_every is not None and refresh_every < 1:
         raise ValueError(f"refresh_every must be None or >= 1, got {refresh_every}")
     if hop < 1 or xs.shape[-1] % hop:
         raise ValueError(f"block length {xs.shape[-1]} must be a multiple "
                          f"of hop {hop} >= 1")
+    if xs.shape[0] < 1:
+        raise ValueError("need at least one block")
     if hop == 1 and kernel_supported(plan, int(xs.shape[-1])):
+        name, static = "hop1_chain_body", (plan, refresh_every == 1)
+
         def block(st, x):
             st, hd, y = _hop1_kernel_block(plan, st, x)
             return (refresh_state_any(plan, st) if refresh_every == 1 else st), hd, y
@@ -544,16 +565,30 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
         sub = (1 if hop >= DRIVER_TILE_TARGET
                else driver_sub_factor(hop, k_tile or DRIVER_TILE_TARGET))
         consts = _fused_driver_consts(plan, hop, sub, xs.device)
+        name, static = "driver_chain_body", (plan, hop, sub, refresh_every == 1)
 
         def block(st, x):
             return _batched(lambda s, xx: _fused_driver_nd(
                 plan, s, xx, consts, hop, refresh_every == 1), st, x)
+    refresh = functools.partial(refresh_state_any, plan)
+    graphed = graphs.active(xs)
+    if graphed:
+        block = graphs.get(name, static, block, state, xs[0])
+        refresh = functools.partial(_replay, "refresh_state_any", (plan,), refresh)
+    nb = xs.shape[0]
     since = 0
-    hds, ys = [], []
-    for x in xs:
-        state, hd, y = block(state, x)
+    for b in range(nb):
+        state, hd, y = block(state, xs[b])
+        if b == 0:
+            hds = hd.new_empty((nb, *hd.shape))
+            ys = y.new_empty((nb, *y.shape))
+        hds[b] = hd
+        ys[b] = y
         if refresh_every not in (None, 1):
-            state, since = _chain_refresh(plan, refresh_every, state, since)
-        hds.append(hd)
-        ys.append(y)
-    return state, torch.stack(hds), torch.stack(ys)
+            state, since = _chain_refresh(refresh, refresh_every, state, since)
+    return (graphs.clone(state) if graphed else state), hds, ys
+
+
+def _replay(name: str, static: tuple, fn, *args):
+    """The static outputs of ``fn``'s graph replayed on ``args``."""
+    return graphs.get(name, static, fn, *args)(*args)

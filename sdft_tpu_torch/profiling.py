@@ -187,7 +187,11 @@ def device_time(fn, reps: int, warmup: int = 2, attempts: int = 4) -> float:
     boundary have been counted on the wrong side of it.  Only recorded time
     is reported: a measurement in which some kernel's count is not a
     multiple of ``reps`` (an event lost or misplaced) is taken again, and
-    after ``attempts`` such measurements this raises.  Needs a card."""
+    after ``attempts`` such measurements this raises.  The kernels a CUDA
+    graph's replay launches are recorded like any others (``graphs``: a
+    graphed call reads 0.96-1.08 of its eager run's device time on an
+    H100, the excess being the graph's input and output copies, by
+    chip_smoke.py).  Needs a card."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(attempts):

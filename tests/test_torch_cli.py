@@ -182,7 +182,7 @@ def test_new_modules_leave_jax_out():
     code = ("import sys, sdft_tpu_torch.cli, sdft_tpu_torch.io, sdft_tpu_torch.profiling, "
             "sdft_tpu_torch.kernels.kparts, sdft_tpu_torch.__main__, sdft_tpu_torch.viz, "
             "sdft_tpu_torch.parallel.scaling_worker, sdft_tpu_torch.oracle, "
-            "sdft_tpu_torch.kernels.compare_bodies; "
+            "sdft_tpu_torch.kernels.compare_bodies, sdft_tpu_torch.graphs; "
             "bad = sorted(n for n in sys.modules "
             "if n.split('.')[0] in ('jax', 'jaxlib', 'sdft_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
