@@ -20,8 +20,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                Hann, float32, two chained 16384-sample blocks) and at
                m = 1000 for all four windows with latency 0.5 and a ROI;
                ``isdft`` and ``roundtrip`` with a low-pass transform;
+               a ragged (3, 8229) channel batch at m = 4096, channels at
+               different offsets, through ``sdft`` (packed, planar bf16),
+               ``sdft_power`` and ``roundtrip(transform)``, each call one
+               K1 launch, against float64 and the per-channel calls;
                ``roundtrip_hopped(hop=1)`` at m = 1000 over 4 blocks of
-               8000 samples.  K1 and K2 must have been launched;
+               8000 samples, and over 2 blocks of 2 channels x 4000 (one
+               K2 launch per block).  K1 and K2 must have been launched;
      b. driver ``roundtrip`` without a transform (the collapsed LTI form)
                at the flagship size; ``roundtrip_hopped`` at m = 1000 with
                hop = 100 over 4 blocks of 16000 and hop = 4 over 4 blocks
@@ -44,14 +49,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
                have been launched;
      d. sharded the seven programs of ``sdft_tpu_torch.parallel`` on a
                one-rank NCCL mesh (1x1x1) of a process group of their own:
-               ``sharded_sdft_pallas`` (K1 per time shard) at m = 4096 on
-               1 x 65536 planar f32 and on 8 x 32768 (peak memory gated);
+               ``sharded_sdft_pallas`` (one K1 launch per time shard) at
+               m = 4096 on 1 x 65536 planar f32 and on 8 x 32768 (peak
+               memory gated);
                ``sharded_sdft``, dispatching to K1 and forced onto the
                scan form (1 x 16384); ``sharded_roundtrip`` (collapsed)
                and ``sharded_isdft``; ``sharded_roundtrip_hopped`` and
                ``sharded_sdft_hopped`` at m = 1000, hop = 100 (8 blocks of
-               16000); ``sharded_roundtrip_pallas`` (K2 per time shard) over
-               4 chained blocks of 8000, run twice and held bit for bit;
+               16000); ``sharded_roundtrip_pallas`` (one K2 launch per
+               time shard) over 4 chained blocks of 8000, run twice and
+               held bit for bit, and on 2 channels x 8000;
                the CLI with ``--mesh 1x1x1 --fd32``.  Each is held against
                its unsharded counterpart and float64.  K1 must have been
                launched by ``sharded_sdft_pallas`` and K2 by
@@ -68,8 +75,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                K2 must have been launched;
      f. graphs every graphed path (``sdft_tpu_torch.graphs``: the
                collapsed round trip at 1 x 65536 and 8 x 32768, the driver
-               chain at hop = 100, 4 and 1 through K2, mono and a channel
-               batch, K2's fused round trip, ``sdft_hopped``,
+               chain at hop = 100, 4 and 1 through K2, mono and channel
+               batches of 2 and 8 (one K2 launch per block), K2's fused
+               round trip, ``sdft_hopped``,
                ``roundtrip_hopped_block`` and ``refresh``) against its
                eager run under ``graphs.disabled()``, bit for bit; three
                calls on one graph leave the first call's outputs as they
@@ -79,7 +87,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the graphs too: they are the default on the card.)
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
-               inputs, at the main path's shapes; the five probes also at a
+               inputs, at the main path's shapes; K1 and K2 also on part
+               a's ragged C = 3 batch (one launch each), each channel of
+               the launch bit for bit a C = 1 launch on its slice of the
+               same prologue; the five probes also at a
                ragged shape (37 tiles, m = 1000) that the persistent grid
                does not divide;
   5. timings   device times (torch.profiler) of each kernel and its plain
@@ -89,8 +100,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                and the five probes at 512 tiles (CUDA events), each beside
                its bound and its share of it; torch.stft at hop 1 beside K1
                (its library yardstick, held against K1's spectra); ``sdft``
-               on 8 channels of 32768 (device, wall, peak memory: each
-               channel's spectra written in place); the
+               on 8 channels of 32768 (one launch; device, wall, peak
+               memory), its prologue and K1 beside the bound, the plain
+               version and torch.stft on the same batch; K2 on 8 channels
+               of 8000 at m = 1000 beside its bound; the
                collapsed round trip for k_tile in {128, 256, 512, 1024} at
                m = 4096 on 65536-sample blocks and on 8 channels of 32768,
                FP32 against TF32; the hop = 100 driver on 4000- and
@@ -105,7 +118,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                beside its unsharded call (wall, device, idle share, in
                turns), and the flagship K1 program's device time by
                kernel; part f's cells eager against graphed in turns (wall,
-               device, idle per block), ``Streamer.run`` and ``run_hopped``
+               device, idle per block; the hop=1 chain on 8 blocks of 8
+               channels x 8000 among them), ``Streamer.run`` and ``run_hopped``
                eager against graphed, and the ``bench 4096 16384 3`` rows
                eager against graphed.
 
@@ -175,6 +189,12 @@ def f64(plan):
     return plan.with_(precision=Precision("float64", "float64"))
 
 
+def lowpass(z):
+    """The round trips' transform: keep the lowest quarter of the bins."""
+    keep = (torch.arange(z.shape[-1], device=z.device) < z.shape[-1] // 4)
+    return z * keep.to(z.real.dtype)
+
+
 def main_path(T, dev) -> dict:
     """Phase 3: the port's public entry points, held against float64."""
     errs = {}
@@ -225,10 +245,6 @@ def main_path(T, dev) -> dict:
     y64 = T.isdft(p64, ref)
     gate("isdft of K1 spectra vs f64 (abs)", maxerr(y, y64), 1e-4)
 
-    def lowpass(z):
-        keep = (torch.arange(z.shape[-1], device=z.device) < z.shape[-1] // 4)
-        return z * keep.to(z.real.dtype)
-
     blk = x[:M]
     _, yt = T.roundtrip(plan, T.init_state(plan, device=dev), blk, lowpass)
     _, yt64 = T.roundtrip(p64, T.init_state(p64, device=dev), blk, lowpass)
@@ -249,6 +265,8 @@ def main_path(T, dev) -> dict:
         scale = ref.abs().max().item()
         gate(f"sdft m={m} {window} latency 0.5 roi vs f64 / scale",
              maxerr(got, ref) / scale, 3e-6)
+
+    errs.update(batch_path(T, dev))
 
     # -- K2: the hop=1 driver chain
     m, B, nb = 1000, 8000, 4
@@ -271,6 +289,108 @@ def main_path(T, dev) -> dict:
     for name, t in (("spectra", hd), ("samples", ys), ("accumulator", st.accumulator)):
         if not torch.isfinite(t).all():
             raise AssertionError(f"hop=1 {name} not finite")
+    return errs
+
+
+def desynchronized(T, plan, C: int, dev):
+    """A batched state whose channels sit at different offsets (channel c
+    has run 300 + 700*c samples of one seeded lead-in), and its channels."""
+    from sdft_tpu_torch.state import stack_states
+
+    lead = signal(300 + 700 * C, SEED + 41, dev)
+    sts = [T.sdft(plan, T.init_state(plan, device=dev), lead[:300 + 700 * c])[0]
+           for c in range(C)]
+    return stack_states(sts), sts
+
+
+#: part a's channel batch: ragged (no multiple of the 128-sample tile)
+BATCH_C, BATCH_M = 3, 8192 + 37
+
+
+def batch_path(T, dev) -> dict:
+    """Part a, the channel axis: ``sdft`` (packed f32, planar bf16),
+    ``sdft_power`` and ``roundtrip(low-pass)`` on a (3, 8229) batch at
+    m = 4096 whose channels sit at different offsets, each call exactly one
+    K1 launch; held against float64 at the gates above and against the
+    per-channel calls at the f32 class (2e-6 of scale, |d|^2 4e-6 of
+    scale^2, samples 1e-5); then the hop=1 chain on 2 blocks of 2 channels
+    x 4000 at m = 1000, one K2 launch per block of a cached call, against
+    float64."""
+    from sdft_tpu_torch.kernels import scan as Q, spectra as S
+
+    errs = {}
+    eps32 = float(np.finfo(np.float32).eps)
+    m, C, M = 4096, BATCH_C, BATCH_M
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    p64 = f64(plan)
+    stb, sts = desynchronized(T, plan, C, dev)
+    stb64, _ = desynchronized(T, p64, C, dev)
+    xb = signal(C * M, SEED + 42, dev).reshape(C, M)
+
+    calls = {"sdft packed f32": lambda p, st, x: T.sdft(p, st, x),
+             "sdft planar bf16": lambda p, st, x: T.sdft(p, st, x, "planar", "bfloat16"),
+             "sdft_power f32": lambda p, st, x: T.sdft_power(p, st, x),
+             "roundtrip(low-pass)": lambda p, st, x: T.roundtrip(p, st, x, lowpass)}
+    st64, ref = T.sdft(p64, stb64, xb)
+    want = torch.complex(ref[..., 0], ref[..., 1])
+    scale = want.abs().max().item()
+    del ref
+    for name, call in calls.items():
+        k1 = S.LAUNCHES
+        st, out = call(plan, stb, xb)
+        torch.cuda.synchronize()
+        if S.LAUNCHES - k1 != 1:
+            raise AssertionError(f"{name} on a {C} x {M} batch: {S.LAUNCHES - k1} K1 "
+                                 "launches, expected one")
+        if name == "sdft packed f32":
+            e = maxerr(torch.complex(out[..., 0].double(), out[..., 1].double()), want) / scale
+            gate(f"{name} {C}x{M} m={m} (one launch) vs f64 / scale", e, 3e-6)
+            errs["batch_k1_rel"] = e
+            gate(f"{name} batch accumulator vs f64", maxerr(st.accumulator, st64.accumulator),
+                 4 * eps32 * (M + 300 + 700 * C))
+        elif name == "sdft planar bf16":
+            gate(f"{name} {C}x{M} vs f64 / scale",
+                 (planar_complex(*out) - want).abs().max().item() / scale, 8e-3)
+        elif name == "sdft_power f32":
+            gate(f"{name} {C}x{M} vs f64 / scale^2", maxerr(out, want.abs() ** 2) / scale**2,
+                 6e-6)
+        else:
+            _, y64 = T.roundtrip(p64, stb64, xb, lowpass)
+            gate(f"{name} {C}x{M} vs f64 (abs)", maxerr(out, y64), 1e-4)
+        for c in range(C):
+            sc, oc = call(plan, sts[c], xb[c])
+            if name == "sdft packed f32":
+                gate(f"{name} channel {c} (offset {int(sts[c].offset)}) vs its own call / scale",
+                     maxerr(out[c], oc) / scale, 2e-6)
+                gate(f"{name} channel {c} accumulator vs its own call",
+                     maxerr(st.accumulator[c], sc.accumulator), 4 * eps32 * (M + 300 + 700 * C))
+            elif name == "sdft_power f32":
+                gate(f"{name} channel {c} vs its own call / scale^2",
+                     maxerr(out[c], oc) / scale**2, 4e-6)
+            elif name == "roundtrip(low-pass)":
+                gate(f"{name} channel {c} vs its own call (abs)", maxerr(out[c], oc), 1e-5)
+        del out
+    del want
+
+    # the hop=1 chain on a channel batch: one K2 launch per block
+    m, C2, B, nb = 1000, 2, 4000, 2
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    p64 = f64(plan)
+    xs = signal(nb * C2 * B, SEED + 43, dev).reshape(nb, C2, B)
+    st0 = T.init_state(plan, channels=C2, device=dev)
+    T.roundtrip_hopped(plan, st0, xs, 1)
+    q = Q.LAUNCHES
+    _, hd, ys = T.roundtrip_hopped(plan, st0, xs, 1)
+    torch.cuda.synchronize()
+    if Q.LAUNCHES - q != nb:
+        raise AssertionError(f"hop=1 chain {nb}x{C2}x{B}: {Q.LAUNCHES - q} K2 launches, "
+                             f"expected {nb} (one per block)")
+    _, hd64, ys64 = T.roundtrip_hopped(p64, T.init_state(p64, channels=C2, device=dev), xs, 1)
+    scale = hd64.abs().max().item()
+    gate(f"roundtrip_hopped(hop=1) {nb}x{C2}x{B} (one K2 launch per block) spectra vs f64 "
+         "/ scale", maxerr(hd, hd64) / scale, 1.5e-5)
+    gate(f"roundtrip_hopped(hop=1) {nb}x{C2}x{B} samples vs f64 (abs)", maxerr(ys, ys64), 1e-4)
+    errs["batch_hop1_rel"] = maxerr(hd, hd64) / scale
     return errs
 
 
@@ -396,18 +516,21 @@ def probes_vs_plain(P, dev) -> dict:
     return out
 
 
-def kernels_vs_plain(T, S, Q, dev) -> dict:
-    """Phase 4: each kernel against its plain version on the same inputs."""
-    out = {}
-    plan = T.Plan(4096, window="hann", precision=T.FAST_PRECISION)
-    st, _ = T.sdft(plan, T.init_state(plan, device=dev), signal(777, SEED + 3, dev))
-    pro = S.spectra_prologue(plan, st, signal(16384, SEED + 4, dev))
+def hold_k1(S, plan, pro, tag: str) -> float:
+    """Every K1 store form on one prologue (a block or a batch: one launch)
+    against the plain version; bf16 outputs against the plain version's
+    float32 values: the kernel's plane must be that value rounded once to
+    bf16 (at most 2^-8 relative), within the f32 gate.  With a batch, each
+    channel of the launch must equal a C = 1 launch on that channel's slice
+    of the same prologue bit for bit.  Returns the f32 forms' largest
+    error."""
     k1 = 0.0
+    channels = pro.lead[0] if len(pro.lead) == 2 else 0
     for form, dtype in S.STORES:
+        before = S.LAUNCHES
         got = S.launch_spectra(plan, pro, form, dtype)
-        # bf16 outputs are held against the plain version's float32 values:
-        # the kernel's plane must be that value rounded once to bf16
-        # (at most 2^-8 relative), within the f32 gate
+        if S.LAUNCHES - before != 1:
+            raise AssertionError(f"K1 {form} {dtype}{tag}: {S.LAUNCHES - before} launches")
         want = S.spectra_reference(plan, pro, form, "float32")
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -415,31 +538,94 @@ def kernels_vs_plain(T, S, Q, dev) -> dict:
             if dtype == "bfloat16":
                 err = ((g.double() - w.double()).abs()
                        - 2.0**-8 * w.double().abs()).max().item()
-                gate(f"K1 {form} {dtype} vs plain f32 (abs beyond bf16 rounding)",
+                gate(f"K1 {form} {dtype}{tag} vs plain f32 (abs beyond bf16 rounding)",
                      max(err, 0.0), 2e-6)
             else:
                 err = maxerr(g, w)
-                gate(f"K1 {form} {dtype} vs plain (abs)", err, 2e-6)
+                gate(f"K1 {form} {dtype}{tag} vs plain (abs)", err, 2e-6)
                 k1 = max(k1, err)
-    out["spectra"] = k1
+        del want
+        for c in range(channels):
+            one = S.launch_spectra(plan, pro.channel(c), form, dtype)
+            one = one if isinstance(one, tuple) else (one,)
+            if not all(torch.equal(g[c], o) for g, o in zip(got, one)):
+                raise AssertionError(f"K1 {form} {dtype}{tag}: channel {c} of the batched "
+                                     "launch differs from its own launch")
+        if channels:
+            print(f"  K1 {form} {dtype}{tag}: each channel equals its C = 1 launch on the "
+                  "same prologue bit for bit", flush=True)
+    return k1
+
+
+def hold_k2(Q, plan, pro, tag: str) -> float:
+    """K2 (packed, planar, y only) on one prologue (one launch) against the
+    plain version: spectra 2e-6, y 1e-5 (the chunks' partial rows are added
+    in another order than the plain version's matmul); planar equals
+    packed, and y is the same in every form; two launches on the same
+    inputs, bit for bit; with a batch, each channel equals a C = 1 launch
+    on its slice of the same prologue bit for bit.  Returns the spectra's
+    error."""
+    synth = Q.synthesis_row(plan, pro.c0.device)
+    channels = pro.lead[0] if len(pro.lead) == 2 else 0
+    runs = {}
+    for layout in ("packed", "planar", None):
+        before = Q.LAUNCHES
+        runs[layout] = Q.launch_scan(plan, pro, synth, layout)
+        if Q.LAUNCHES - before != 1:
+            raise AssertionError(f"K2 {layout}{tag}: {Q.LAUNCHES - before} launches")
+        for c in range(channels):
+            d1, y1 = Q.launch_scan(plan, pro.channel(c), synth, layout)
+            dk, yk = runs[layout]
+            same = torch.equal(yk[c], y1) and (
+                layout is None or all(torch.equal(a[c], b) for a, b in zip(
+                    dk if layout == "planar" else (dk,), d1 if layout == "planar" else (d1,))))
+            if not same:
+                raise AssertionError(f"K2 {layout}{tag}: channel {c} of the batched launch "
+                                     "differs from its own launch")
+    dk, yk = runs["packed"]
+    dr, yr = Q.forward_and_y_reference(plan, pro, synth, "packed")
+    gate(f"K2 spectra{tag} vs plain (abs)", maxerr(dk, dr), 2e-6)
+    gate(f"K2 y{tag} vs plain (abs)", maxerr(yk, yr), 1e-5)
+    (re, im), _ = runs["planar"]
+    if not (torch.equal(re, dk[..., 0]) and torch.equal(im, dk[..., 1])
+            and torch.equal(runs["planar"][1], yk) and torch.equal(runs[None][1], yk)):
+        raise AssertionError(f"K2{tag}: the store forms disagree")
+    again = Q.launch_scan(plan, pro, synth, "packed")
+    same = torch.equal(again[0], dk) and torch.equal(again[1], yk)
+    print(f"  K2{tag}: planar, packed and y-only agree; two launches on the same inputs "
+          f"bit-identical: {same}"
+          + (f"; each channel equals its C = 1 launch bit for bit" if channels else ""),
+          flush=True)
+    if not same:
+        raise AssertionError("K2 is not deterministic")
+    return maxerr(dk, dr)
+
+
+def kernels_vs_plain(T, S, Q, dev) -> dict:
+    """Phase 4: each kernel against its plain version on the same inputs:
+    K1 at m = 4096 on a 16384-sample block, K2 at m = 1000 on 8000; then
+    both on part a's ragged C = 3 batch at m = 4096 and m = 1000 (Blackman,
+    latency 0.5), channels at different offsets."""
+    out = {}
+    plan = T.Plan(4096, window="hann", precision=T.FAST_PRECISION)
+    st, _ = T.sdft(plan, T.init_state(plan, device=dev), signal(777, SEED + 3, dev))
+    pro = S.spectra_prologue(plan, st, signal(16384, SEED + 4, dev))
+    out["spectra"] = hold_k1(S, plan, pro, "")
 
     plan = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
     st, _ = T.sdft(plan, T.init_state(plan, device=dev), signal(555, SEED + 5, dev))
     pro = S.spectra_prologue(plan, st, signal(8000, SEED + 6, dev))
-    synth = Q.synthesis_row(plan, dev)
-    dk, yk = Q.launch_scan(plan, pro, synth, "packed")
-    dr, yr = Q.forward_and_y_reference(plan, pro, synth, "packed")
-    gate("K2 spectra vs plain (abs)", maxerr(dk, dr), 2e-6)
-    # y: the chunks' partial rows are added in another order than the plain
-    # version's matmul
-    gate("K2 y vs plain (abs)", maxerr(yk, yr), 1e-5)
-    out["scan"] = maxerr(dk, dr)
-    # the repaired reduction: two launches on the same inputs, bit for bit
-    again = Q.launch_scan(plan, pro, synth, "packed")
-    same = torch.equal(again[0], dk) and torch.equal(again[1], yk)
-    print(f"  K2 two launches on the same inputs bit-identical: {same}", flush=True)
-    if not same:
-        raise AssertionError("K2 is not deterministic")
+    out["scan"] = hold_k2(Q, plan, pro, "")
+
+    C, M = BATCH_C, BATCH_M
+    for m in (4096, 1000):
+        plan = T.Plan(m, window="blackman", latency=0.5, precision=T.FAST_PRECISION)
+        st, _ = desynchronized(T, plan, C, dev)
+        pro = S.spectra_prologue(plan, st, signal(C * M, SEED + 44, dev).reshape(C, M))
+        tag = f" batch {C}x{M} m={m}"
+        out["spectra"] = max(out["spectra"], hold_k1(S, plan, pro, tag))
+        out["scan"] = max(out["scan"], hold_k2(Q, plan, pro, tag))
+        del pro
     return out
 
 
@@ -514,16 +700,17 @@ def timings(T, S, Q, dev, card: str) -> dict:
           f"{chain:.4f} ms per block ({B / chain * 1e3:.4e} samples/s), device "
           f"{chain_dev:.4f} ms per block [{card}]", flush=True)
     res["k2_packed"] = (k, p, b_ms, b_by)
-    res["sdft_batch"] = batch_timings(T, dev, card)
+    res["batch"] = batch_timings(T, S, Q, dev, card)
     return res
 
 
 def stft_beside_k1(T, plan, x, card: str) -> float:
     """torch.stft at hop 1 as K1's library yardstick (the port never calls
-    it): its device time, and its frames against K1's spectra.  Frame f of
-    the periodic-Hann STFT of 2m points, scaled by 1/(2m), is K1's row
-    f + 2m - 1 (the demodulation leaves no per-bin phase); the top `halo`
-    bins differ, since the reference mirrors around bin m-1 there."""
+    it), on one block (M,) or a channel batch (C, M): its device time, and
+    its frames against K1's spectra.  Frame f of the periodic-Hann STFT of
+    2m points, scaled by 1/(2m), is K1's row f + 2m - 1 (the demodulation
+    leaves no per-bin phase); the top `halo` bins differ, since the
+    reference mirrors around bin m-1 there."""
     m = plan.dftsize
     n = 2 * m
     win = torch.hann_window(n, periodic=True, device=x.device)
@@ -534,33 +721,39 @@ def stft_beside_k1(T, plan, x, card: str) -> float:
 
     lib_ms = device_time(stft, 3, 1)
     lib_wall = wall_time(stft, 3, 1)
-    z = stft()
-    _, d = T.sdft(plan, T.init_state(plan, device=x.device), x)
+    xb = x.reshape(-1, x.shape[-1])
+    z = stft().reshape(xb.shape[0], m + 1, -1)
+    _, d = T.sdft(plan, T.init_state(plan, channels=xb.shape[0], device=x.device), xb)
     err = scale = 0.0
     top = 0.0
-    for f0 in range(0, z.shape[1], 8192):
-        ref = z[:, f0:f0 + 8192].T / n
-        got = torch.view_as_complex(d[f0 + n - 1:f0 + n - 1 + ref.shape[0]])
-        diff = (got - ref[:, :m]).abs()
-        err = max(err, diff[:, :m - 1].max().item())
-        top = max(top, diff[:, m - 1].max().item())
+    for f0 in range(0, z.shape[-1], 8192):
+        ref = z[..., f0:f0 + 8192].transpose(1, 2) / n
+        got = torch.view_as_complex(d[:, f0 + n - 1:f0 + n - 1 + ref.shape[1]])
+        diff = (got - ref[..., :m]).abs()
+        err = max(err, diff[..., :m - 1].max().item())
+        top = max(top, diff[..., m - 1].max().item())
         scale = max(scale, ref.abs().max().item())
+        del ref, got, diff
     agree = err <= 3e-6 * scale
     print(f"timing: torch.stft(n_fft={n}, hop_length=1, hann periodic, center=False) on "
-          f"{x.numel()} samples: device {lib_ms:.4f} ms, wall {lib_wall:.4f} ms; frames / "
-          f"(2m) vs K1 rows 2m-1.. bins 0..m-2: {err:.3e} ({err / scale:.3e} of scale, "
-          f"{'agree' if agree else 'DO NOT agree'} at 3e-6), bin m-1 {top:.3e} (the "
-          f"reference's mirror around m-1) [{card}]", flush=True)
+          f"{' x '.join(map(str, x.shape))} samples: device {lib_ms:.4f} ms, wall "
+          f"{lib_wall:.4f} ms; frames / (2m) vs K1 rows 2m-1.. bins 0..m-2: {err:.3e} "
+          f"({err / scale:.3e} of scale, {'agree' if agree else 'DO NOT agree'} at 3e-6), bin "
+          f"m-1 {top:.3e} (the reference's mirror around m-1) [{card}]", flush=True)
     if not agree:
         raise AssertionError("torch.stft and K1 do not agree")
     del z, d
     return lib_ms
 
 
-def batch_timings(T, dev, card: str, m: int = 4096, C: int = 8, M: int = 32768) -> tuple:
-    """sdft on an 8 x 32768 channel batch, planar f32: each channel's K1
-    launch writes its slice of the batch's outputs, so the peak device
-    memory above the inputs is the 8 GiB of spectra, not twice that."""
+def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 32768) -> dict:
+    """The channel axis.  ``sdft`` on an 8 x 32768 batch, planar f32: one
+    prologue and one K1 launch that writes the batch's outputs, so the peak
+    device memory above the inputs is the 8 GiB of spectra, not twice
+    that; its device and wall time, the prologue's and K1's device times,
+    K1's bound, its plain version and torch.stft on the same batch.  Then
+    K2 on 8 channels x 8000 at m = 1000 beside its bound."""
+    res = {}
     plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
     st = T.init_state(plan, channels=C, device=dev)
     xs = signal(C * M, SEED + 40, dev).reshape(C, M)
@@ -568,19 +761,63 @@ def batch_timings(T, dev, card: str, m: int = 4096, C: int = 8, M: int = 32768) 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    k1 = S.LAUNCHES
     out = T.sdft(plan, st, xs, "planar")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
+    launched = S.LAUNCHES - k1
     del out
     d = device_time(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
     w = wall_time(lambda: T.sdft(plan, st, xs, "planar"), 3, 1)
     spectra = 2 * C * M * m * 4
-    print(f"timing: sdft C={C} M={M} m={m} planar f32: device {d:.4f} ms, wall {w:.4f} ms, "
-          f"peak {peak / 2**30:.3f} GiB above the inputs for {spectra / 2**30:.1f} GiB of "
-          f"spectra [{card}]", flush=True)
+    print(f"timing: sdft C={C} M={M} m={m} planar f32: {launched} K1 launch(es); device "
+          f"{d:.4f} ms, wall {w:.4f} ms ({C * M / w * 1e3:.4e} samples/s), idle "
+          f"{max(0.0, 1 - d / w):.1%}, peak {peak / 2**30:.3f} GiB above the inputs for "
+          f"{spectra / 2**30:.1f} GiB of spectra [{card}]", flush=True)
+    if launched != 1:
+        raise AssertionError(f"sdft on {C} x {M}: {launched} K1 launches, expected one")
     if peak > 1.25 * spectra:
         raise AssertionError(f"channel batch peak {peak / 2**30:.2f} GiB: spectra copied")
-    return d, w, peak
+    res["sdft"] = (d, w, peak)
+
+    pro = S.spectra_prologue(plan, st, xs)
+    t_pro = device_time(lambda: S.spectra_prologue(plan, st, xs), 10)
+    w_pro = wall_time(lambda: S.spectra_prologue(plan, st, xs), 10)
+    k = device_time(lambda: S.launch_spectra(plan, pro, "planar", "float32"), 10)
+    nbytes = C * M * m * FORM_BYTES["planar", "float32"] + tile_input_bytes(pro)
+    b_ms, b_by = bound(nbytes, K1_FLOPS_PER_BIN * C * M * m)
+    torch.cuda.empty_cache()
+    try:
+        plain = device_time(lambda: S.spectra_reference(plan, pro, "planar", "float32"), 2, 1)
+    except torch.cuda.OutOfMemoryError:
+        plain = None
+    del pro
+    torch.cuda.empty_cache()
+    print(f"timing: K1 planar f32 batch C={C} M={M} m={m}: prologue device {t_pro:.4f} ms "
+          f"(wall {w_pro:.4f}), kernel device {k:.4f} ms ({nbytes / k / 1e6:.1f} GB/s), "
+          f"{nbytes / 1e9:.4f} GB moved, bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.1%} of "
+          f"bound; plain device "
+          f"{'not measured (out of memory)' if plain is None else f'{plain:.4f} ms'} [{card}]",
+          flush=True)
+    lib = stft_beside_k1(T, plan, xs, card)
+    res["k1"] = (k, plain, b_ms, b_by, lib, t_pro)
+
+    m, B = 1000, 8000
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(plan, channels=C, device=dev)
+    x = signal(C * B, SEED + 45, dev).reshape(C, B)
+    pro = S.spectra_prologue(plan, st, x)
+    synth = Q.synthesis_row(plan, dev)
+    k = device_time(lambda: Q.launch_scan(plan, pro, synth, "packed"), 20)
+    p = device_time(lambda: Q.forward_and_y_reference(plan, pro, synth, "packed"), 5, 1)
+    nbytes = C * B * m * 8 + C * B * 4 + tile_input_bytes(pro) + synth.numel() * 4
+    b_ms, b_by = bound(nbytes, K2_FLOPS_PER_BIN * C * B * m)
+    print(f"timing: K2 packed batch C={C} m={m} B={B}: kernel device {k:.4f} ms "
+          f"({C * B / k * 1e3:.4e} samples/s, {nbytes / k / 1e6:.1f} GB/s), bound {b_ms:.4f} "
+          f"ms ({b_by}), {b_ms / k:.1%} of bound; plain device {p:.4f} ms; library: none "
+          f"[{card}]", flush=True)
+    res["k2"] = (k, p, b_ms, b_by)
+    return res
 
 
 def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
@@ -948,6 +1185,8 @@ def graph_cells(T, Q, dev) -> dict:
     st8 = T.sdft(big, T.init_state(big, channels=8, device=dev), lead[:1000].repeat(8, 1))[0]
     sd = T.sdft(drv, T.init_state(drv, device=dev), lead)[0]
     sd2 = T.sdft(drv, T.init_state(drv, channels=2, device=dev), lead[:1000].repeat(2, 1))[0]
+    sd8 = T.sdft(drv, T.init_state(drv, channels=8, device=dev), lead[:1000].repeat(8, 1))[0]
+    x8 = signal(8 * 8 * 8000, SEED + 64, dev).reshape(8, 8, 8000)
     return {
         "roundtrip 1x65536 m=4096": (lambda: T.roundtrip(big, st1, x[:65536]), 1, 0),
         "roundtrip 8x32768 m=4096": (lambda: T.roundtrip(big, st8, x.reshape(8, 32768)), 1, 0),
@@ -962,7 +1201,9 @@ def graph_cells(T, Q, dev) -> dict:
             lambda: T.roundtrip_hopped(drv, sd, x[:64000].reshape(8, 8000), 1), 8, 8),
         "roundtrip_hopped hop=1 (K2) m=1000 4x2x2000 refresh_every=2": (
             lambda: T.roundtrip_hopped(drv, sd2, x[:16000].reshape(4, 2, 2000), 1,
-                                       refresh_every=2), 4, 8),
+                                       refresh_every=2), 4, 4),
+        "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000": (
+            lambda: T.roundtrip_hopped(drv, sd8, x8, 1), 8, 8),
         "roundtrip_block_fused (K2) m=4096 16384": (
             lambda: Q.roundtrip_block_fused(big, st1, x[:16384]), 1, 1),
         "sdft_hopped hop=100 m=1000 16000": (
@@ -1034,6 +1275,7 @@ GRAPH_TIMED = ("roundtrip 1x65536 m=4096", "roundtrip 8x32768 m=4096",
                "roundtrip_hopped hop=100 m=1000 8x4000",
                "roundtrip_hopped hop=100 m=1000 8x16000",
                "roundtrip_hopped hop=1 (K2) m=1000 8x8000",
+               "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000",
                "roundtrip_block_fused (K2) m=4096 16384")
 
 
@@ -1257,12 +1499,16 @@ def sharded_path(T, S, Q, dev, card: str, cli_ref: dict, mesh) -> tuple:
                                                        layout="planar"),
         lambda plan=plan, x=x: T.sdft(plan, T.init_state(plan, device=dev), x, "planar"), 5)
 
-    # -- the 8 x 32768 batch: one K1 launch per channel, in place
+    # -- the 8 x 32768 batch: one K1 launch for the time shard's channels
     C, Mb = SHARD_BATCH
     xb = signal(C * Mb, SEED + 51, dev).reshape(C, Mb)
     stb = T.init_state(plan, channels=C, device=dev)
+    k1 = S.LAUNCHES
     peak = peak_gib(lambda: count("sharded_sdft_pallas", lambda: par.sharded_sdft_pallas(
         plan, mesh, stb, xb, layout="planar")))
+    if S.LAUNCHES - k1 != mesh.shape[1]:
+        raise AssertionError(f"sharded_sdft_pallas {C}x{Mb}: {S.LAUNCHES - k1} K1 launches, "
+                             f"expected one per time shard ({mesh.shape[1]})")
     _, (re, im) = par.sharded_sdft_pallas(plan, mesh, stb, xb, layout="planar")
     re, im = re.to_local(), im.to_local()
     _, (ure, uim) = T.sdft(plan, stb, xb, "planar")
@@ -1383,7 +1629,11 @@ def sharded_path(T, S, Q, dev, card: str, cli_ref: dict, mesh) -> tuple:
             ys.append(y.to_local())
         return st, torch.stack(ds), torch.stack(ys)
 
+    k2 = Q.LAUNCHES
     st1, d1, y1 = count("sharded_roundtrip_pallas", chain)
+    if Q.LAUNCHES - k2 != nb * mesh.shape[1]:
+        raise AssertionError(f"sharded_roundtrip_pallas over {nb} blocks: {Q.LAUNCHES - k2} "
+                             "K2 launches, expected one per block and time shard")
     _, d2, y2 = count("sharded_roundtrip_pallas", chain)
     same = torch.equal(d1, d2) and torch.equal(y1, y2)
     print(f"  sharded_roundtrip_pallas run twice bit-identical: {same}", flush=True)
@@ -1404,6 +1654,21 @@ def sharded_path(T, S, Q, dev, card: str, cli_ref: dict, mesh) -> tuple:
           f"{torch.equal(d1, hdu) and torch.equal(y1, ysu)}", flush=True)
     errs["shard_hop1_rel"] = maxerr(d1, hd64) / scale
     del d1, d2, hdu, hd64
+    # two channels: still one K2 launch per time shard
+    x2 = signal(2 * B, SEED + 54, dev).reshape(2, B)
+    st2 = T.init_state(plan, channels=2, device=dev)
+    k2 = Q.LAUNCHES
+    _, d2, y2 = count("sharded_roundtrip_pallas", lambda: par.sharded_roundtrip_pallas(
+        plan, mesh, st2, x2))
+    if Q.LAUNCHES - k2 != mesh.shape[1]:
+        raise AssertionError(f"sharded_roundtrip_pallas 2x{B}: {Q.LAUNCHES - k2} K2 launches, "
+                             "expected one per time shard")
+    _, hdu, ysu = T.roundtrip_hopped(plan, st2, x2[None], 1, refresh_every=1)
+    gate(f"sharded_roundtrip_pallas 2x{B} (one launch) vs roundtrip_hopped(hop=1), spectra "
+         "(abs)", maxerr(d2.to_local(), hdu[0]), 1e-7)
+    gate(f"sharded_roundtrip_pallas 2x{B} vs roundtrip_hopped(hop=1), samples (abs)",
+         maxerr(y2.to_local(), ysu[0]), 1e-6)
+    del d2, hdu
     jobs["shard_k2"] = (
         f"sharded_roundtrip_pallas m={m} {nb}x{B} vs roundtrip_hopped(hop=1)",
         chain, lambda plan=plan, xs=xs: T.roundtrip_hopped(plan, sth, xs, 1, refresh_every=1),
@@ -1925,18 +2190,23 @@ def main() -> int:
 
     src = "sdft_tpu_torch/kernels/csrc/"
     k1, k2 = times["k1_planar_float32"], times["k2_packed"]
+    (b1, bp1, bb1, bby1, bl1, _), (b2, bp2, bb2, bby2) = times["batch"]["k1"], times["batch"]["k2"]
     kernels = [
         {"name": "spectra", "route": "cuda", "source": src + "spectra.cu",
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:509",
          "launches": launches["spectra"], "max_abs_err": vs_plain["spectra"],
          "ms": k1[0], "plain_ms": k1[1], "bound_ms": k1[2], "bound_by": k1[3],
          "library_ms": times["k1_library"],
+         "batch": {"shape": "8x32768 planar f32", "ms": b1, "plain_ms": bp1, "bound_ms": bb1,
+                   "bound_by": bby1, "library_ms": bl1},
          "sharded_by": {p: n[0] for p, n in by_program.items() if n[0]}},
         {"name": "scan", "route": "cuda", "source": src + "scan.cu",
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:147",
          "launches": launches["scan"], "max_abs_err": vs_plain["scan"],
          "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2], "bound_by": k2[3],
          "library_ms": None,
+         "batch": {"shape": "8x8000 m=1000 packed f32", "ms": b2, "plain_ms": bp2,
+                   "bound_ms": bb2, "bound_by": bby2, "library_ms": None},
          "sharded_by": {p: n[1] for p, n in by_program.items() if n[1]}},
         {"name": "kparts_make", "route": "cuda", "source": src + "kparts.cu",
          "replaces": "scripts/archive/exp_kparts.py:41",

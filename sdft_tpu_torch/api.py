@@ -11,9 +11,10 @@ Dispatch mirrors ``api._use_pallas`` (api.py:66-67) through a predicate of
 the plan alone, ``kernel_supported``: float32 plans with 128 <= m <= 2^19
 go through the kernel wrappers on every device (the plain PyTorch versions
 on a CPU tensor, the CUDA kernels on a CUDA tensor); other plans (float64,
-m < 128) take the reference ``ops`` path.  A channel batch runs one launch
-per channel; on the card each launch writes its channel's slice of the
-batch's outputs in place (no stacking copy).
+m < 128) take the reference ``ops`` path.  A channel batch on a kernel plan
+runs one prologue and one launch for all its channels, the counterpart of
+the JAX package's vmap over its Pallas calls (sdft_tpu/api.py:57-63,
+319-326); the ``ops`` path runs its channels one after another.
 
 Extended plans (``Precision(fd="float32x2")``) run ``sdft`` and ``isdft``
 in the double-word tier (``ops.twofloat``), as ``sdft_tpu.api`` does; every
@@ -28,8 +29,7 @@ import torch
 
 from . import graphs
 from .cplx import from_complex, pack, unpack
-from .kernels.spectra import (empty_outputs, forward_block,
-                              forward_block_power, kernel_supported)
+from .kernels.spectra import forward_block, forward_block_power, kernel_supported
 from .ops import lti
 from .ops.analysis import refresh_state, sdft_block
 from .ops.synthesis import isdft_block
@@ -45,18 +45,12 @@ def _samples(state: State, samples, ndims=(1, 2)) -> torch.Tensor:
     return x
 
 
-def _per_channel(fn, state: State, x: torch.Tensor, outs=None):
-    """Run ``fn(state, samples[, out]) -> (state, out)`` for one channel or
-    each channel of a batch.  With ``outs`` (the batch's outputs: a tensor,
-    or a tuple of them, with a leading channel axis) each channel writes its
-    slice in place; otherwise the channels' outputs are stacked."""
+def _per_channel(fn, state: State, x: torch.Tensor):
+    """Run ``fn(state, samples) -> (state, out)`` for one channel or each
+    channel of a batch, stacking the channels' outputs (the ``ops`` path of
+    plans the kernels do not take)."""
     if x.ndim == 1:
         return fn(state, x)
-    if outs is not None:
-        def part(c):
-            return tuple(o[c] for o in outs) if isinstance(outs, tuple) else outs[c]
-        return stack_states([fn(batch_state(state, c), xc, part(c))[0]
-                             for c, xc in enumerate(x)]), outs
     outs = [fn(batch_state(state, c), xc) for c, xc in enumerate(x)]
     st = stack_states([o[0] for o in outs])
     first = outs[0][1]
@@ -64,15 +58,6 @@ def _per_channel(fn, state: State, x: torch.Tensor, outs=None):
         return st, tuple(torch.stack([o[1][j] for o in outs])
                          for j in range(len(first)))
     return st, torch.stack([o[1] for o in outs])
-
-
-def _kernel_outputs(plan: Plan, x: torch.Tensor, form: str, dtype: str | None):
-    """A channel batch's K1 outputs on the card, (C, M, m[, 2]), which each
-    channel's launch fills in place; None for one channel or on the CPU
-    (the plain versions' outputs are stacked)."""
-    if x.ndim == 1 or x.device.type != "cuda":
-        return None
-    return empty_outputs(tuple(x.shape), plan.dftsize, form, dtype or "float32", x.device)
 
 
 def _sdft_ops(plan: Plan, layout: str, spectra_dtype: str | None):
@@ -117,10 +102,7 @@ def sdft(plan: Plan, state: State, samples, layout: str = "packed",
                              "(hi, lo) spectra only")
         return sdft_block_df(plan, state, x)
     if kernel_supported(plan, x.shape[-1], spectra_dtype):
-        return _per_channel(
-            lambda st, xc, out=None: forward_block(plan, st, xc, layout,
-                                                   spectra_dtype, out),
-            state, x, _kernel_outputs(plan, x, layout, spectra_dtype))
+        return forward_block(plan, state, x, layout, spectra_dtype)
     return _per_channel(_sdft_ops(plan, layout, spectra_dtype), state, x)
 
 
@@ -130,10 +112,7 @@ def sdft_power(plan: Plan, state: State, samples,
     (new_state, power) with power (M, m) / (C, M, m) real."""
     x = _samples(state, samples)
     if kernel_supported(plan, x.shape[-1], spectra_dtype):
-        return _per_channel(
-            lambda st, xc, out=None: forward_block_power(plan, st, xc,
-                                                         spectra_dtype, out),
-            state, x, _kernel_outputs(plan, x, "power", spectra_dtype))
+        return forward_block_power(plan, state, x, spectra_dtype)
 
     def run(st, xc):
         st, d = sdft_block(plan, st, xc)
@@ -206,9 +185,7 @@ def roundtrip(plan: Plan, state: State, samples, transform=None):
     if transform is None:
         return lti.roundtrip_block_lti(plan, state, x)
     if kernel_supported(plan, x.shape[-1]):
-        st, d = _per_channel(
-            lambda s, xc, out=None: forward_block(plan, s, xc, out=out), state, x,
-            _kernel_outputs(plan, x, "packed", None))
+        st, d = forward_block(plan, state, x)
     else:
         st, d = _per_channel(lambda s, xc: sdft_block(plan, s, xc), state, x)
     z = transform(unpack(d))
@@ -235,7 +212,7 @@ def roundtrip_hopped(plan: Plan, state: State, blocks, hop: int,
 
     Returns (new_state, hop_dfts, ys): hop_dfts packed (nb, B//hop, m, 2)
     [(nb, C, B//hop, m, 2)], ys (nb, B) [(nb, C, B)].  hop = 1 with a
-    plan the kernels take runs one K2 launch per block and channel.
+    plan the kernels take runs one K2 launch per block, for all channels.
     """
     xs = _samples(state, blocks, ndims=(2, 3))
     return lti.roundtrip_hopped_chain(plan, state, xs, hop, k_tile, refresh_every)

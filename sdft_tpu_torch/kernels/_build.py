@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signatures of the entry points (csrc/spectra.cu, scan.cu, kparts.cu)
 SIGNATURES = {
-    "sdft_spectra_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "sdft_spectra_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _I, _I, _I, _I, _P),
-    "sdft_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+    "sdft_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _I, _F, _I, _I, _P),
     "sdft_kparts_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _I, _P),

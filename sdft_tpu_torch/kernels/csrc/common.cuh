@@ -49,11 +49,14 @@
 // it, and lane 0 and lane 31 read them.  So aux never touches shared memory
 // and no block barrier runs inside the tile loop.  A block's WARPS warps
 // share one chunk, and its phasor rows, loaded once under the block's only
-// barrier, and walk different tiles.  Control flow depends on the block and
-// the arguments only (a warp past the last tile recomputes it and stores
-// nothing; rows past M run on zero deltas, unstored), so the compiler sees
-// every shuffle converged.  The window's halo (0, 1, 2) is a template
-// parameter: the stencil, the guard slots and the shuffles are unrolled.
+// barrier, and walk different tiles: those of every channel of a batch, one
+// launch for the batch (the counterpart of the JAX package's vmap over the
+// Pallas call, which prepends a channel axis to its grid).  Control flow
+// depends on the block and the arguments only (a warp past the last tile
+// recomputes it and stores nothing; rows past M run on zero deltas,
+// unstored), so the compiler sees every shuffle converged.  The window's
+// halo (0, 1, 2) is a template parameter: the stencil, the guard slots and
+// the shuffles are unrolled.
 //
 // Stores: a strip of a row is V consecutive elements of each output plane,
 // written by one vector store per plane (two for K1's packed form) when
@@ -126,11 +129,14 @@ enum Store {
   NO_SPECTRA = 5,   // no spectra (synthesis only)
 };
 
+// A batch of C channels of M samples each: every channel has its own nt
+// tiles, carries and deltas; the table is shared.  Channel c's arrays start
+// c * (nt*m) carries, c * (nt*K) deltas and c * (M*m) output bins in.
 struct TileArgs {
-  const float2* c0;     // (nt, m) per-tile carry, demodulated frame
-  const float* delta;   // (nt*K,) comb deltas, zero padded past M
+  const float2* c0;     // (C, nt, m) per-tile carry, demodulated frame
+  const float* delta;   // (C, nt*K) comb deltas, each row zero padded past M
   const float2* table;  // (K+1, m) T_i^k
-  int m, M, K, nt, halo;
+  int m, C, M, K, nt, halo;
   float w0, w1, w2;     // window taps times the analysis weight 1/(2m)
   int roi_first, roi_last;
 };
@@ -299,9 +305,10 @@ __device__ __forceinline__ int table_row(int r, int nc) { return r < nc ? r * FI
 
 // The body both kernels run.  With EMIT_Y, every row's spectrum is also
 // reduced against the synthesis row over the warp's chunk of bins:
-// y[chunk * M + k] = y_scale * sum_{i in chunk} (Re out[k,i] * Re s[i] -
-// Im out[k,i] * Im s[i]), one plain store per row and warp (each (chunk,
-// row) has exactly one writer); scan.cu adds the chunks in order.
+// y[chunk * C*M + c*M + k] = y_scale * sum_{i in chunk} (Re out[c,k,i] *
+// Re s[i] - Im out[c,k,i] * Im s[i]), one plain store per row and warp (each
+// (chunk, channel, row) has exactly one writer); scan.cu adds the chunks in
+// order.
 template <int V, int HALO, int STORE, bool EMIT_Y, bool VEC>
 __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void* out1,
                                               const float2* synth, float* y,
@@ -380,26 +387,32 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
     s_i[j] = EMIT_Y && p0 + j < a.m ? __ldg(&synth[p0 + j]) : make_float2(0.f, 0.f);
   __syncthreads();
 
-  // Control flow depends on the block and the arguments only, so the
-  // compiler sees every shuffle converged: a warp past the last tile runs
-  // the last tile again and stores nothing, and rows past M run on zero
-  // deltas unstored.
-  for (int tg = blockIdx.y; tg * WARPS < a.nt; tg += gridDim.y) {
+  // The tile groups of the whole batch, channel by channel: group g is
+  // channel g / groups, whose tiles tg*WARPS .. tg*WARPS+WARPS-1 its warps
+  // take, so a warp's tiles never straddle two channels.  Control flow
+  // depends on the block and the arguments only, so the compiler sees every
+  // shuffle converged: a warp past its channel's last tile runs that tile
+  // again and stores nothing, and rows past M run on zero deltas unstored.
+  const int groups = (a.nt + WARPS - 1) / WARPS;
+  for (int g = blockIdx.y; g < a.C * groups; g += gridDim.y) {
+    const int ch = g / groups, tg = g - ch * groups;
     const int t = min(tg * WARPS + warp, a.nt - 1);
-    const float2* c0 = a.c0 + (size_t)t * a.m;
+    const size_t tile = (size_t)ch * a.nt + t;  // the tile's index in the batch
+    const float2* c0 = a.c0 + tile * a.m;
     float2 u[V], gu[MAX_HALO];
 #pragma unroll
     for (int j = 0; j < V; ++j) u[j] = bin_value(c0, src[j], live >> j & 1, cj >> j & 1);
 #pragma unroll
     for (int q = 0; q < MAX_HALO; ++q) gu[q] = bin_value(c0, gsrc[q], glive >> q & 1, gcj >> q & 1);
     __syncwarp();  // the previous tile is done with dl
-    const float4* dsrc = reinterpret_cast<const float4*>(a.delta + (size_t)t * a.K);
+    const float4* dsrc = reinterpret_cast<const float4*>(a.delta + tile * a.K);
     for (int q = lane; q < a.K / 4; q += 32) reinterpret_cast<float4*>(dl)[q] = __ldg(dsrc + q);
     __syncwarp();
 
     const long long row0 = (long long)t * a.K;
     const int rows = tg * WARPS + warp >= a.nt ? 0 : (a.M - row0 < a.K ? (int)(a.M - row0) : a.K);
-    size_t idx = (size_t)row0 * a.m + p0;  // the strip's first bin in row k0
+    const size_t crow0 = (size_t)ch * a.M + row0;  // row k0 = 0 in the batch's rows
+    size_t idx = crow0 * a.m + p0;  // the strip's first bin in row k0
     for (int k0 = 0; k0 < a.K; k0 += FINE, idx += (size_t)FINE * a.m) {
       const int c = k0 / FINE;
       float2 cc[V], f[V], gcc[MAX_HALO], gf[MAX_HALO];
@@ -481,7 +494,7 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
         const float v = warp_sum8(yv, lane);
         const int r = row_of_lane(lane);
         if ((lane & 3) == 0 && k0 + r < rows)
-          y[(size_t)blockIdx.x * a.M + row0 + k0 + r] = y_scale * v;
+          y[(size_t)blockIdx.x * a.C * a.M + crow0 + k0 + r] = y_scale * v;
       }
     }
   }
@@ -489,14 +502,16 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
 
 // Validate the arguments, set the kernel's shared-memory attributes, size
 // the grid and launch; returns the CUDA error code (0 on success).  The grid
-// is (bin chunks, tile groups): one wave of resident blocks, each warp
-// walking every (gridDim.y * WARPS)-th tile of its chunk.
+// is (bin chunks, tile groups of the whole batch): one wave of resident
+// blocks, each walking every gridDim.y-th group of its chunk.  The channels
+// fold into the groups rather than into gridDim.z, so a block fills its
+// phasor rows once for all of them.
 template <int V, typename Kernel, typename... Args>
 int launch_tiles(Kernel kernel, const TileArgs& a, bool vec, cudaStream_t stream,
                  Args... args) {
   if (a.K <= 0 || a.K % FINE || a.K > MAX_K || a.halo < 0 || a.halo > MAX_HALO ||
       a.m < MAX_HALO + 1 || a.nt <= 0 || a.M <= 0 || (long long)a.nt * a.K < a.M ||
-      (vec && a.m % V))
+      a.C <= 0 || (long long)a.C * ((a.nt + WARPS - 1) / WARPS) > 0x7fffffff || (vec && a.m % V))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(V, a.K);
   cudaError_t err = cudaFuncSetAttribute(
@@ -510,7 +525,7 @@ int launch_tiles(Kernel kernel, const TileArgs& a, bool vec, cudaStream_t stream
     return (int)err;
   if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
   const int chunks = (a.m + chunk_bins(V) - 1) / chunk_bins(V);
-  const int groups = (a.nt + WARPS - 1) / WARPS;
+  const int groups = a.C * ((a.nt + WARPS - 1) / WARPS);
   int grid_y = per_sm * sms / chunks;
   grid_y = grid_y < 1 ? 1 : (grid_y > groups ? groups : grid_y);
   kernel<<<dim3(chunks, grid_y), WARPS * 32, smem, stream>>>(a, args...);

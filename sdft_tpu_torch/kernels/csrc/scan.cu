@@ -21,8 +21,9 @@
 // spectrum, so the O(M*m) spectra store bounds it as it bounds K1 (8 bytes
 // per bin in the packed f32 layout roundtrip_hopped reads: 64 MB, 0.020 ms, at
 // m = 1000 and B = 8000).  The y reduction adds 4 flops per bin.  At that
-// size a launch has only 16 chunks of 32 strips by 63 tiles of work, so
-// latency, not the store, is what a design can lose.
+// size one channel has only 16 chunks of 32 strips by 63 tiles of work, so
+// latency, not the store, is what a design can lose; a channel batch is one
+// launch over all its channels' tiles (common.cuh), C times the work.
 //
 // How the design answers it: the spectra are written once, packed, by
 // coalesced vector stores, and y is reduced from registers: each warp sums
@@ -31,13 +32,14 @@
 // read of the spectra and no block barrier.  Strips of two bins
 // (K2_STRIP) keep twice K1's warps in flight on these small blocks.
 //
-// y in a fixed order: every (chunk, row) pair has exactly one writer, so
-// the tile kernel stores each chunk's partial row sum into a scratch
-// buffer y_part[chunk, row] (16 x 8000 f32, 0.5 MB, at m = 1000 and
-// B = 8000) and a second small kernel, scan_kernel_rows, adds the chunks in
-// ascending order.  Two launches on the same inputs give the same y bit
-// for bit (an atomicAdd per row and warp, the previous design, added them
-// in an order that changed from run to run).
+// y in a fixed order: every (chunk, channel, row) has exactly one writer,
+// so the tile kernel stores each chunk's partial row sum into a scratch
+// buffer y_part[chunk, channel * M + row] (16 x 8000 f32, 0.5 MB, per
+// channel at m = 1000 and B = 8000) and a second small kernel,
+// scan_kernel_rows, adds the chunks in ascending order.  Two launches on
+// the same inputs give the same y bit for bit (an atomicAdd per row and
+// warp, the previous design, added them in an order that changed from run
+// to run).
 //
 // Device time at m = 1000, B = 8000 (NVIDIA H100 80GB HBM3, 700 W;
 // kernels/compare_bodies.py, in turns with the atomic form): 0.0260-0.0264
@@ -69,12 +71,14 @@ int launch_halo(const TileArgs& a, cudaStream_t s, void* out0, void* out1,
 }
 
 // y[k] = sum of the chunks' partial rows y_part[c, k], c = 0, 1, ... in
-// order: one thread per row, reads coalesced across the warp.
+// order, over the n = C*M rows of the batch: one thread per row, reads
+// coalesced across the warp.
 __global__ void scan_kernel_rows(const float* __restrict__ y_part, float* __restrict__ y,
-                                 int chunks, int M) {
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < M; k += gridDim.x * blockDim.x) {
+                                 int chunks, long long n) {
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n;
+       k += (long long)gridDim.x * blockDim.x) {
     float s = y_part[k];
-    for (int c = 1; c < chunks; ++c) s += y_part[(size_t)c * M + k];
+    for (int c = 1; c < chunks; ++c) s += y_part[(size_t)c * n + k];
     y[k] = s;
   }
 }
@@ -86,18 +90,22 @@ int launch(const TileArgs& a, bool vec, cudaStream_t s, void* out0, void* out1,
                       : launch_halo<STORE, false>(a, s, out0, out1, synth, y_part, y_scale);
   if (err != 0) return err;
   const int threads = 256, chunks = (a.m + chunk_bins(K2_STRIP) - 1) / chunk_bins(K2_STRIP);
-  scan_kernel_rows<<<(a.M + threads - 1) / threads, threads, 0, s>>>(y_part, y, chunks, a.M);
+  const long long n = (long long)a.C * a.M;
+  scan_kernel_rows<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(y_part, y,
+                                                                              chunks, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace sdft
 
-// y_part: (y_chunks, M) float scratch, one row per chunk; y_chunks must be
-// ceil(m / chunk_bins(K2_STRIP)), the chunks this build's kernels write.
+// One launch for a batch of C channels of M samples (TileArgs).  y_part:
+// (y_chunks, C*M) float scratch, one row per chunk; y_chunks must be
+// ceil(m / chunk_bins(K2_STRIP)), the chunks this build's kernels write;
+// y: (C, M).
 extern "C" int sdft_scan_launch(const void* c0, const void* delta,
                                 const void* table, const void* synth,
                                 void* out0, void* out1, void* y_part, int y_chunks,
-                                void* y, int m, int M,
+                                void* y, int m, int C, int M,
                                 int K, int nt, int halo, float w0, float w1,
                                 float w2, int roi_first, int roi_last,
                                 float y_scale, int store, int vector,
@@ -108,7 +116,7 @@ extern "C" int sdft_scan_launch(const void* c0, const void* delta,
   const TileArgs a{static_cast<const float2*>(c0),
                    static_cast<const float*>(delta),
                    static_cast<const float2*>(table),
-                   m, M, K, nt, halo, w0, w1, w2, roi_first, roi_last};
+                   m, C, M, K, nt, halo, w0, w1, w2, roi_first, roi_last};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* sy = static_cast<const float2*>(synth);
   float* yp = static_cast<float*>(y_part);

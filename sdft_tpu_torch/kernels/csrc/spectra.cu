@@ -58,9 +58,11 @@ int launch(const TileArgs& a, bool vec, cudaStream_t s, void* out0, void* out1) 
 
 }  // namespace sdft
 
+// One launch for a batch of C channels of M samples (TileArgs); C = 1 is a
+// single block.
 extern "C" int sdft_spectra_launch(const void* c0, const void* delta,
                                    const void* table, void* out0, void* out1,
-                                   int m, int M, int K, int nt, int halo,
+                                   int m, int C, int M, int K, int nt, int halo,
                                    float w0, float w1, float w2, int roi_first,
                                    int roi_last, int store, int vector,
                                    void* stream) {
@@ -68,7 +70,7 @@ extern "C" int sdft_spectra_launch(const void* c0, const void* delta,
   const TileArgs a{static_cast<const float2*>(c0),
                    static_cast<const float*>(delta),
                    static_cast<const float2*>(table),
-                   m, M, K, nt, halo, w0, w1, w2, roi_first, roi_last};
+                   m, C, M, K, nt, halo, w0, w1, w2, roi_first, roi_last};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool v = vector != 0;
   switch (store) {

@@ -20,6 +20,8 @@ included (``graphs``).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import graphs
@@ -64,7 +66,8 @@ def forward_and_y_reference(plan: Plan, pro: Prologue, synth: torch.Tensor,
 
 def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
                 layout: str | None = "packed"):
-    """Launch K2 on the prologue's CUDA tensors: (spectra or None, y)."""
+    """Launch K2 once on the prologue's CUDA tensors, for its whole batch:
+    (spectra or None, y), y of shape ``pro.lead``."""
     global LAUNCHES
     args = launch_args(plan, pro)
     dev = pro.c0.device
@@ -77,8 +80,9 @@ def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
     # each chunk's partial row sums, added in chunk order by the second
     # kernel of the launch (csrc/scan.cu: y in a fixed order); the launch
     # refuses a row count other than its build's chunk count
-    y_part = torch.empty((-(-m // (32 * STRIP)), pro.M), dtype=torch.float32, device=dev)
-    y = torch.empty(pro.M, dtype=torch.float32, device=dev)
+    y_part = torch.empty((-(-m // (32 * STRIP)), math.prod(pro.lead)), dtype=torch.float32,
+                         device=dev)
+    y = torch.empty(pro.lead, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_scan_launch(
@@ -99,8 +103,10 @@ def _scan(plan: Plan, pro: Prologue, layout: str | None):
 
 def forward_and_y(plan: Plan, state: State, samples: torch.Tensor,
                   layout: str = "packed"):
-    """Spectra and synthesized samples of one channel's block from one K2
-    launch: (state, dfts, y), dfts packed (M, m, 2) or a planar pair."""
+    """Spectra and synthesized samples of one channel's (M,) block, or of a
+    (C, M) batch with a batched state, from one prologue and one K2 launch:
+    (state, dfts, y), dfts packed (M, m, 2) [(C, M, m, 2)] or a planar pair,
+    y (M,) [(C, M)]."""
     if layout not in ("packed", "planar"):
         raise ValueError(f"layout must be 'packed' or 'planar', got {layout!r}")
     pro = spectra_prologue(plan, state, samples)

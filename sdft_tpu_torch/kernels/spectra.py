@@ -16,6 +16,11 @@ phase table T_i^k, k = 0..K.  The TPU prologue's padded bin axis and its
 Hermitian fix columns are not needed: the kernel applies both Hermitian
 edges explicitly.
 
+A (C, M) channel batch is one prologue over all channels' tiles (the
+totals GEMM on the (C*nt, K) deltas) and one launch, the counterpart of the
+JAX package's vmap over its Pallas call (sdft_tpu/api.py:57-63): the
+kernel walks the tiles of every channel.
+
 On a CPU tensor the wrapper runs the kernel's plain PyTorch version
 (``spectra_reference``); on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts the kernel's launches, a graph's replays included
@@ -36,7 +41,7 @@ from ..config import fp32_matmul
 from ..ops.convolve import window_convolve
 from ..ops.twiddle import mulmod, phasors, roi_mask
 from ..plan import Plan
-from ..state import State
+from ..state import State, batch_state
 from ..windows import WINDOW_HALO, WINDOW_TAPS
 from ._build import check, library
 
@@ -110,15 +115,15 @@ def _coarse_rows(plan: Plan, K: int, device: torch.device) -> torch.Tensor:
 
 def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int,
                 coarse: torch.Tensor) -> torch.Tensor:
-    """row0[t, i] = T_i^((offset + t*K) mod 2m): one exact row for the
-    offset times the cached coarse rows (unit-phasor products)."""
+    """row0[..., t, i] = T_i^((offset + t*K) mod 2m) for an offset of shape
+    () or (C,): one exact row per offset times the cached coarse rows
+    (unit-phasor products); (..., nt, m)."""
     m = plan.dftsize
     i = torch.arange(m, device=offset.device)
-    o = phasors(m, mulmod(offset, i, 2 * m), -1.0, torch.float32)
+    o = phasors(m, mulmod(offset[..., None], i, 2 * m), -1.0, torch.float32)
     q = coarse.shape[0]
-    if nt <= q:
-        return o[None, :] * coarse[:nt]
-    return o[None, :] * coarse[torch.arange(nt, device=offset.device) % q]
+    rows = coarse[:nt] if nt <= q else coarse[torch.arange(nt, device=offset.device) % q]
+    return o[..., None, :] * rows
 
 
 def _cumsum_complex(z: torch.Tensor, dim: int) -> torch.Tensor:
@@ -145,67 +150,86 @@ def _prefix_tiles(z: torch.Tensor) -> torch.Tensor:
 
 
 class Prologue(NamedTuple):
-    """Everything the kernels read, plus the state after the block."""
+    """Everything the kernels read for a batch of C channels (C = 1 for one
+    channel's block), plus the state after the block."""
 
-    delta: torch.Tensor   # (nt*K,) f32 comb deltas, zero padded past M
-    c0: torch.Tensor      # (nt, m, 2) f32 per-tile carry, demodulated frame
+    delta: torch.Tensor   # (C, nt*K) f32 comb deltas, each row zero padded past M
+    c0: torch.Tensor      # (C, nt, m, 2) f32 per-tile carry, demodulated frame
     phase: torch.Tensor   # (K+1, m, 2) f32 table T_i^k
-    state: State          # the carry after the block
-    M: int                # samples in the block
+    state: State          # the carry after the block (batched iff the input was)
+    M: int                # samples in each channel's block
+
+    @property
+    def lead(self) -> tuple:
+        """Leading shape of the outputs: (C, M) for a batch, (M,) else."""
+        return (self.c0.shape[0], self.M) if self.state.offset.ndim else (self.M,)
+
+    def channel(self, c: int) -> Prologue:
+        """Channel c of a batch's prologue, as one channel's block: views of
+        its carries and deltas (a launch on it writes that channel alone)."""
+        return Prologue(self.delta[c:c + 1], self.c0[c:c + 1], self.phase,
+                        batch_state(self.state, c), self.M)
 
 
 def spectra_prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologue:
-    """The sequential part of one block, as dense ops over all tiles
-    (port of ``_spectra_prologue``, analysis_pallas.py:632-748)."""
+    """The sequential part of one block, as dense ops over all tiles of all
+    channels (port of ``_spectra_prologue``, analysis_pallas.py:632-748,
+    and of the JAX package's vmap over it).  ``samples`` is (M,) with an
+    unbatched state or (C, M) with a batched one; channels may sit at
+    different offsets."""
     m = plan.dftsize
     n2 = 2 * m
     K = TILE_K
-    (M,) = samples.shape
+    if samples.ndim not in (1, 2) or (samples.ndim == 2) != (state.offset.ndim == 1):
+        raise ValueError(f"samples {tuple(samples.shape)} need a state batched iff "
+                         f"they are (C, M), got offset {tuple(state.offset.shape)}")
+    x = samples.to(torch.float32).reshape(-1, samples.shape[-1])
+    C, M = x.shape
     nt = -(-M // K)
     dev = samples.device
     fine, phase = _spectra_tables(plan, K, dev)
 
-    x = samples.to(torch.float32)
-    line = torch.cat([state.delayline.to(torch.float32), x])
-    delta = x - line[:M]
-    new_delayline = line[M:].to(plan.precision.td_dtype)
-    if nt * K != M:
+    line = torch.cat([state.delayline.to(torch.float32).reshape(C, n2), x], dim=1)
+    delta = x - line[:, :M]
+    new_delayline = line[:, M:].to(plan.precision.td_dtype)
+    if nt * K != M:     # each channel's row on its own
         delta = torch.nn.functional.pad(delta, (0, nt * K - M))
-    dt = delta.view(nt, K)
 
     with fp32_matmul(plan.precision):
-        s = torch.view_as_complex((dt @ fine).view(nt, m, 2))     # (nt, m)
-    row = _phase_rows(plan, state.offset, nt, K, _coarse_rows(plan, K, dev))
+        s = torch.view_as_complex((delta.view(C * nt, K) @ fine).view(C, nt, m, 2))
+    offset = state.offset.reshape(C)
+    row = _phase_rows(plan, offset, nt, K, _coarse_rows(plan, K, dev))   # (C, nt, m)
     rt = row * s
     acc_in = torch.view_as_complex(state.accumulator.to(torch.float32)
-                                   .contiguous())
+                                   .reshape(C, m, 2).contiguous())
     # exclusive prefix with the carried accumulator in front:
-    # pre[t] = acc + sum_{t' < t} row0_t' S_t'
-    pre = _prefix_tiles(torch.cat([acc_in[None], rt[:-1]]))
+    # pre[c, t] = acc[c] + sum_{t' < t} row0_ct' S_ct'
+    pre = _prefix_tiles(torch.cat([acc_in[:, None], rt[:, :-1]], dim=1))
     c0 = torch.view_as_real(pre * row.conj())
     new_state = State(
-        offset=torch.remainder(state.offset + M, n2).to(state.offset.dtype),
-        delayline=new_delayline,
-        accumulator=torch.view_as_real(pre[-1] + rt[-1]).to(
-            state.accumulator.dtype),
+        offset=torch.remainder(offset + M, n2).to(state.offset.dtype).reshape(
+            state.offset.shape),
+        delayline=new_delayline.reshape(state.delayline.shape),
+        accumulator=torch.view_as_real(pre[:, -1] + rt[:, -1]).to(
+            state.accumulator.dtype).reshape(state.accumulator.shape),
     )
     return Prologue(delta, c0, phase, new_state, M)
 
 
 def reference_spectra(plan: Plan, pro: Prologue) -> torch.Tensor:
-    """Plain PyTorch version of the kernels' tile body: (M, m) complex64
-    spectra from the prologue's carries, deltas and phase table."""
+    """Plain PyTorch version of the kernels' tile body: (M, m) or (C, M, m)
+    complex64 spectra from the prologue's carries, deltas and phase table."""
     m = plan.dftsize
-    nt = pro.c0.shape[0]
+    C, nt = pro.c0.shape[:2]
     K = pro.phase.shape[0] - 1
     F = torch.view_as_complex(pro.phase)
-    d = pro.delta.view(nt, K)
-    u = (torch.view_as_complex(pro.c0)[:, None, :]
-         + _cumsum_complex(d[:, :, None] * F[None, :K, :], 1))
+    d = pro.delta.view(C, nt, K)
+    u = (torch.view_as_complex(pro.c0)[:, :, None, :]
+         + _cumsum_complex(d[..., None] * F[:K], 2))
     mask = roi_mask(plan, pro.c0.device, torch.float32)
-    aux = (u * F[None, 1:, :].conj()) * mask
-    out = window_convolve(plan, aux.reshape(nt * K, m)[:pro.M])
-    return out * mask
+    aux = (u * F[1:].conj()) * mask
+    out = window_convolve(plan, aux.reshape(C, nt * K, m)[:, :pro.M])
+    return (out * mask).reshape(pro.lead + (m,))
 
 
 def emit(out: torch.Tensor, form: str, dtype: str):
@@ -256,13 +280,14 @@ def empty_outputs(lead: tuple, m: int, form: str, dtype: str, device):
 
 
 def allocate(pro: Prologue, m: int, form: str, dtype: str, out=None):
-    """Output tensors of a store form, as (tensors to return, pointers).
-    ``out`` (a tensor, or the planar pair) is written in place instead of a
-    new allocation: one channel's contiguous slice of a batch's outputs."""
+    """Output tensors of a store form for the prologue's block or batch
+    (``pro.lead`` + (m[, 2])), as (tensors to return, pointers).  ``out``
+    (a tensor, or the planar pair) is written in place instead of a new
+    allocation."""
     dev = pro.c0.device
-    outs = empty_outputs((pro.M,), m, form, dtype, dev) if out is None else out
+    outs = empty_outputs(pro.lead, m, form, dtype, dev) if out is None else out
     planes = outs if isinstance(outs, tuple) else (outs,)
-    shape = (pro.M, m, 2) if form == "packed" else (pro.M, m)
+    shape = pro.lead + ((m, 2) if form == "packed" else (m,))
     align = store_bytes(m, form, dtype)
     for t in planes:
         if (tuple(t.shape) != shape or t.dtype != getattr(torch, dtype)
@@ -285,9 +310,9 @@ def launch_args(plan: Plan, pro: Prologue) -> tuple:
     if not 128 <= m <= MAX_DFTSIZE:
         raise ValueError(f"dftsize {m} outside the kernels' range [128, {MAX_DFTSIZE}]")
     K = pro.phase.shape[0] - 1
-    nt = pro.c0.shape[0]
-    for name, t, shape in (("delta", pro.delta, (nt * K,)),
-                           ("c0", pro.c0, (nt, m, 2)),
+    C, nt = pro.c0.shape[:2]
+    for name, t, shape in (("delta", pro.delta, (C, nt * K)),
+                           ("c0", pro.c0, (C, nt, m, 2)),
                            ("phase", pro.phase, (K + 1, m, 2))):
         if (t.dtype != torch.float32 or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != dev):
@@ -298,13 +323,14 @@ def launch_args(plan: Plan, pro: Prologue) -> tuple:
     taps = [c * plan.analysis_weight for c in WINDOW_TAPS[plan.window]]
     first, last = plan.roi_bins
     return (pro.c0.data_ptr(), pro.delta.data_ptr(), pro.phase.data_ptr(),
-            m, pro.M, K, nt, WINDOW_HALO[plan.window], *taps, first, last)
+            m, C, pro.M, K, nt, WINDOW_HALO[plan.window], *taps, first, last)
 
 
 def launch_spectra(plan: Plan, pro: Prologue, form: str = "packed",
                    dtype: str = "float32", out=None):
-    """Launch K1 on the prologue's CUDA tensors; returns the spectra
-    (written into ``out`` when given, see ``allocate``)."""
+    """Launch K1 once on the prologue's CUDA tensors, for its whole batch;
+    returns the spectra (written into ``out`` when given, see
+    ``allocate``)."""
     global LAUNCHES
     args = launch_args(plan, pro)
     dev = pro.c0.device
@@ -335,12 +361,14 @@ def _check_dtype(out_dtype):
 
 def forward_block(plan: Plan, state: State, samples: torch.Tensor,
                   layout: str = "packed", out_dtype: str | None = None, out=None):
-    """Forward analysis of one channel's block through K1.
+    """Forward analysis of one channel's (M,) block, or of a (C, M) batch
+    with a batched state, through one prologue and one K1 launch.
 
-    Returns (state, dfts): packed (M, m, 2) float32, or with
-    layout="planar" a (re, im) pair of (M, m) planes, in bfloat16 if
-    ``out_dtype="bfloat16"`` (the scan itself stays float32).  On the card
-    ``out`` (tensors of those shapes) receives the spectra in place.
+    Returns (state, dfts): packed (M, m, 2) [(C, M, m, 2)] float32, or with
+    layout="planar" a (re, im) pair of (M, m) [(C, M, m)] planes, in
+    bfloat16 if ``out_dtype="bfloat16"`` (the scan itself stays float32).
+    On the card ``out`` (tensors of those shapes) receives the spectra in
+    place.
     """
     dtype = _check_dtype(out_dtype)
     if layout not in ("packed", "planar"):
@@ -353,7 +381,8 @@ def forward_block(plan: Plan, state: State, samples: torch.Tensor,
 
 def forward_block_power(plan: Plan, state: State, samples: torch.Tensor,
                         out_dtype: str | None = None, out=None):
-    """Forward analysis emitting |dft|^2 as one (M, m) plane through K1."""
+    """Forward analysis emitting |dft|^2 as one (M, m) [(C, M, m)] plane
+    through K1."""
     dtype = _check_dtype(out_dtype)
     pro = spectra_prologue(plan, state, samples)
     return pro.state, _spectra(plan, pro, "power", dtype, out)

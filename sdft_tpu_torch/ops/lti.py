@@ -42,9 +42,10 @@ import torch
 from .. import graphs
 from ..config import fp32_matmul
 from ..cplx import pack
+from ..kernels.scan import forward_and_y
 from ..kernels.spectra import _prefix_tiles, kernel_supported
 from ..plan import Plan
-from ..state import State, batch_state, stack_states
+from ..state import State, batch_state
 from ..windows import WINDOW_HALO, WINDOW_TAPS
 from .convolve import window_convolve
 from .twiddle import mulmod, phasors, roi_mask
@@ -511,17 +512,6 @@ def _chain_refresh(refresh, refresh_every: int, st: State, since: int):
 
 # -- the driver protocol over stacked blocks -------------------------------------
 
-def _hop1_kernel_block(plan: Plan, st: State, x: torch.Tensor):
-    """hop = 1 through K2, one launch per channel: (state, spectra, y)."""
-    from ..kernels.scan import forward_and_y
-
-    if x.ndim == 1:
-        return forward_and_y(plan, st, x)
-    outs = [forward_and_y(plan, batch_state(st, c), xc) for c, xc in enumerate(x)]
-    return (stack_states([o[0] for o in outs]),
-            *(torch.stack([o[j] for o in outs]) for j in (1, 2)))
-
-
 def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
                            hop: int, k_tile: int | None = None,
                            refresh_every: int | None = 1):
@@ -541,7 +531,8 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
 
     Returns (new_state, hop_dfts, ys): hop_dfts packed (nb, B//hop, m, 2)
     [(nb, C, B//hop, m, 2)], ys (nb, B) [(nb, C, B)].  At hop = 1, plans
-    the kernels take run one K2 launch per block and channel.
+    the kernels take run one prologue and one K2 launch per block, for all
+    its channels.
 
     On the card one block is captured as a graph (the counterpart of the
     JAX package's ``lax.scan`` body) and replayed once per block, each
@@ -559,7 +550,7 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
         name, static = "hop1_chain_body", (plan, refresh_every == 1)
 
         def block(st, x):
-            st, hd, y = _hop1_kernel_block(plan, st, x)
+            st, hd, y = forward_and_y(plan, st, x)
             return (refresh_state_any(plan, st) if refresh_every == 1 else st), hd, y
     else:
         sub = (1 if hop >= DRIVER_TILE_TARGET

@@ -42,12 +42,12 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..api import _kernel_outputs, _per_channel
 from ..config import fp32_matmul
 from ..cplx import pack, unpack
+from ..kernels.scan import forward_and_y
 from ..kernels.spectra import _prefix_tiles, forward_block, kernel_supported
 from ..ops.convolve import convolve_padded
-from ..ops.lti import (_fused_driver_consts, _hop1_kernel_block, _hop_aux,
+from ..ops.lti import (_fused_driver_consts, _hop_aux,
                        _hop_consts_device, _lti_consts_device, _phase_rows,
                        _refresh_fused, _stepped_consts_device, default_k_tile,
                        driver_sub_factor)
@@ -422,8 +422,9 @@ def _forward_local_pallas(plan: Plan, state: State, samples: torch.Tensor, ax: _
     offset alone), so the inter-block carry needs no prefix collective:
     the comb exchange is the program's only cross-rank traffic.  Each rank
     then runs K1 (``kernels.spectra.forward_block``) or, with ``emit_y``,
-    K2 (``kernels.scan.forward_and_y``) once per channel on its local
-    block, and writes only its local (C, L, m) spectra."""
+    K2 (``kernels.scan.forward_and_y``) once on its local (C, L) block, all
+    its channels in one prologue and one launch, and writes only its local
+    (C, L, m) spectra."""
     fd = plan.precision.fd_dtype
     n2 = 2 * plan.dftsize
     C, L = samples.shape
@@ -434,11 +435,9 @@ def _forward_local_pallas(plan: Plan, state: State, samples: torch.Tensor, ax: _
     off = torch.remainder(state.offset + ax.d * L, n2).to(state.offset.dtype)
     st0 = _refresh_fused(plan, State(off, hist, zeros), fd)
     if emit_y:
-        _, dfts, ys = _hop1_kernel_block(plan, st0, x)
+        _, dfts, ys = forward_and_y(plan, st0, x)
     else:
-        _, dfts = _per_channel(
-            lambda st, xc, out=None: forward_block(plan, st, xc, layout, spectra_dtype, out),
-            st0, x, _kernel_outputs(plan, x, layout, spectra_dtype))
+        _, dfts = forward_block(plan, st0, x, layout, spectra_dtype)
     # the global end state (the same on every rank): the stream's tail and
     # the end accumulator from the same refresh identity
     end = _refresh_fused(plan, State(_next_offset(plan, state, m_total), new_delayline,
@@ -629,8 +628,8 @@ def _check_kernel_program(name: str, plan: Plan, mesh: DeviceMesh, C: int, M: in
 
 def sharded_sdft_pallas(plan: Plan, mesh: DeviceMesh, state: State, samples,
                         layout: str = "packed", spectra_dtype: str | None = None):
-    """Forward analysis emitting every spectrum over the mesh, through K1
-    once per channel on each time shard (``_forward_local_pallas``).  The
+    """Forward analysis emitting every spectrum over the mesh, through one
+    K1 launch per time shard for all its channels (``_forward_local_pallas``).  The
     spectra store, the path's bound, splits linearly over the ``time``
     axis; the only collectives are ``_comb_history``'s (size local blocks
     >= 2m to keep them at one send/recv and a broadcast).
@@ -661,8 +660,8 @@ def sharded_sdft_pallas(plan: Plan, mesh: DeviceMesh, state: State, samples,
 
 def sharded_roundtrip_pallas(plan: Plan, mesh: DeviceMesh, state: State, samples):
     """The hop=1 driver protocol over the mesh: every sample's spectrum and
-    the synthesized samples, through K2 once per channel on each time shard
-    (the kernel of the single-device hop=1 chain).  Same carry scheme as
+    the synthesized samples, through one K2 launch per time shard for all
+    its channels (the kernel of the single-device hop=1 chain).  Same carry scheme as
     ``sharded_sdft_pallas``; same requirements; no ``interpret`` argument.
 
     Returns (state, dfts, ys): dfts packed (C, M, m, 2), ys (C, M),

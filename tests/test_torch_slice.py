@@ -78,8 +78,10 @@ def test_hop1_chain_channel_batch_matches_jax():
 
 
 def test_f32_channel_batch_through_the_kernel_wrappers():
-    """(C, M) f32 batches run one wrapper call per channel; each channel
-    equals its own single-channel run bit for bit."""
+    """(C, M) f32 batches run one prologue and one wrapper call for all
+    channels; each channel equals its own single-channel run bit for bit
+    (on the CPU the batch's (C*nt, K) totals GEMM and every later op give
+    each channel's rows the sums a channel alone gets)."""
     jp = J.Plan(256, window="blackman", precision=J.FAST_PRECISION)
     tp = T.plan_from_jax(jp)
     x = torch.as_tensor(_signal(2 * 150, seed=6).reshape(2, 150))
