@@ -73,18 +73,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
                ``scripts/crosscheck_torch.py`` at m = 1000, hop = 100,
                --fd32 against the native oracle, in a subprocess.  K1 and
                K2 must have been launched;
-     f. graphs every graphed path (``sdft_tpu_torch.graphs``: the
+     f. graphs every graphed path (``sdft_tpu_torch.graphs``: ``sdft``
+               in every K1 store form at m = 4096 (planar f32 and bf16 on
+               65536, the 8 x 32768 batch, packed f32 and both power forms
+               on 16384) and ``roundtrip(low-pass)`` on 8 x 4096, each a
+               replay of the prologue's graph and one K1 launch; the
                collapsed round trip at 1 x 65536 and 8 x 32768, the driver
-               chain at hop = 100, 4 and 1 through K2, mono and channel
-               batches of 2 and 8 (one K2 launch per block), K2's fused
-               round trip, ``sdft_hopped``,
+               chain at hop = 100, 4 and 1 (a prologue graph per block and
+               one K2 launch into the stacked outputs), mono and channel
+               batches of 2 and 8, K2's fused round trip, ``sdft_hopped``,
                ``roundtrip_hopped_block`` and ``refresh``) against its
                eager run under ``graphs.disabled()``, bit for bit; three
                calls on one graph leave the first call's outputs as they
-               were; each cached call adds its K2 launches to the count;
-               peak memory graphed and eager, each graph's capture time and
-               pool bytes.  K2 must have been launched.  (Parts a-e run
-               the graphs too: they are the default on the card.)
+               were; each cached call adds its K1 and K2 launches to the
+               counts; peak memory graphed and eager, each graph's capture
+               time and pool bytes; the profiler trace of each hop=1 chain
+               (one K2 kernel per block, no device-to-device copy as large
+               as a block's spectra); a warm graphed ``sdft`` and chain
+               block under ``set_sync_debug_mode("error")``, and the
+               synchronising calls of an eager ``sdft`` ("warn").  K1 and
+               K2 must have been launched.  (Parts a-e run the graphs too:
+               they are the default on the card.)
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
                inputs, at the main path's shapes; K1 and K2 also on part
@@ -118,8 +127,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                beside its unsharded call (wall, device, idle share, in
                turns), and the flagship K1 program's device time by
                kernel; part f's cells eager against graphed in turns (wall,
-               device, idle per block; the hop=1 chain on 8 blocks of 8
-               channels x 8000 among them), ``Streamer.run`` and ``run_hopped``
+               device, idle and host enqueue time per block; the flagship
+               ``sdft`` planar f32 and bf16, the 8 x 32768 batch and the
+               hop=1 chain on 8 blocks of 8 channels x 8000 among them),
+               ``Streamer.run`` and ``run_hopped``
                eager against graphed, and the ``bench 4096 16384 3`` rows
                eager against graphed.
 
@@ -1173,7 +1184,10 @@ def same(a, b) -> bool:
 def graph_cells(T, Q, dev) -> dict:
     """The graphed paths on the cells of PERF.md section 5, on carried
     (non-zero) states: {label: (call, blocks per call, K2 launches per
-    call)}."""
+    call, K1 launches per call)}.  ``sdft``, ``sdft_power`` and
+    ``roundtrip(transform)`` replay the prologue's graph and launch K1
+    after it, in every K1 store form; the hop=1 chains replay the
+    prologue's graph per block and launch K2 after it."""
     from sdft_tpu_torch.ops import lti
 
     f32 = T.FAST_PRECISION
@@ -1187,51 +1201,69 @@ def graph_cells(T, Q, dev) -> dict:
     sd2 = T.sdft(drv, T.init_state(drv, channels=2, device=dev), lead[:1000].repeat(2, 1))[0]
     sd8 = T.sdft(drv, T.init_state(drv, channels=8, device=dev), lead[:1000].repeat(8, 1))[0]
     x8 = signal(8 * 8 * 8000, SEED + 64, dev).reshape(8, 8, 8000)
+    low = torch.arange(4096, device=dev) < 400
     return {
-        "roundtrip 1x65536 m=4096": (lambda: T.roundtrip(big, st1, x[:65536]), 1, 0),
-        "roundtrip 8x32768 m=4096": (lambda: T.roundtrip(big, st8, x.reshape(8, 32768)), 1, 0),
+        "sdft planar f32 m=4096 65536": (lambda: T.sdft(big, st1, x[:65536], "planar"),
+                                         1, 0, 1),
+        "sdft planar bf16 m=4096 65536": (
+            lambda: T.sdft(big, st1, x[:65536], "planar", "bfloat16"), 1, 0, 1),
+        "sdft planar f32 m=4096 8x32768": (
+            lambda: T.sdft(big, st8, x.reshape(8, 32768), "planar"), 1, 0, 1),
+        "sdft packed f32 m=4096 16384": (lambda: T.sdft(big, st1, x[:16384]), 1, 0, 1),
+        "sdft_power f32 m=4096 16384": (lambda: T.sdft_power(big, st1, x[:16384]), 1, 0, 1),
+        "sdft_power bf16 m=4096 16384": (
+            lambda: T.sdft_power(big, st1, x[:16384], "bfloat16"), 1, 0, 1),
+        "roundtrip(low-pass) m=4096 8x4096": (
+            lambda: T.roundtrip(big, st8, x[:32768].reshape(8, 4096), lambda z: z * low),
+            1, 0, 1),
+        "roundtrip 1x65536 m=4096": (lambda: T.roundtrip(big, st1, x[:65536]), 1, 0, 0),
+        "roundtrip 8x32768 m=4096": (lambda: T.roundtrip(big, st8, x.reshape(8, 32768)),
+                                     1, 0, 0),
         "roundtrip_hopped hop=100 m=1000 8x4000": (
-            lambda: T.roundtrip_hopped(drv, sd, x[:32000].reshape(8, 4000), 100), 8, 0),
+            lambda: T.roundtrip_hopped(drv, sd, x[:32000].reshape(8, 4000), 100), 8, 0, 0),
         "roundtrip_hopped hop=100 m=1000 8x16000": (
-            lambda: T.roundtrip_hopped(drv, sd, x[:128000].reshape(8, 16000), 100), 8, 0),
+            lambda: T.roundtrip_hopped(drv, sd, x[:128000].reshape(8, 16000), 100), 8, 0, 0),
         "roundtrip_hopped hop=4 refresh_every=2 m=1000 4x4000": (
             lambda: T.roundtrip_hopped(drv, sd, x[:16000].reshape(4, 4000), 4,
-                                       refresh_every=2), 4, 0),
+                                       refresh_every=2), 4, 0, 0),
         "roundtrip_hopped hop=1 (K2) m=1000 8x8000": (
-            lambda: T.roundtrip_hopped(drv, sd, x[:64000].reshape(8, 8000), 1), 8, 8),
+            lambda: T.roundtrip_hopped(drv, sd, x[:64000].reshape(8, 8000), 1), 8, 8, 0),
         "roundtrip_hopped hop=1 (K2) m=1000 4x2x2000 refresh_every=2": (
             lambda: T.roundtrip_hopped(drv, sd2, x[:16000].reshape(4, 2, 2000), 1,
-                                       refresh_every=2), 4, 4),
+                                       refresh_every=2), 4, 4, 0),
         "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000": (
-            lambda: T.roundtrip_hopped(drv, sd8, x8, 1), 8, 8),
+            lambda: T.roundtrip_hopped(drv, sd8, x8, 1), 8, 8, 0),
         "roundtrip_block_fused (K2) m=4096 16384": (
-            lambda: Q.roundtrip_block_fused(big, st1, x[:16384]), 1, 1),
+            lambda: Q.roundtrip_block_fused(big, st1, x[:16384]), 1, 1, 0),
         "sdft_hopped hop=100 m=1000 16000": (
-            lambda: T.sdft_hopped(drv, sd, x[:16000], 100), 1, 0),
+            lambda: T.sdft_hopped(drv, sd, x[:16000], 100), 1, 0, 0),
         "roundtrip_hopped_block hop=100 refresh m=1000 16000": (
-            lambda: lti.roundtrip_hopped_block(drv, sd, x[:16000], 100, True), 1, 0),
-        "refresh m=1000": (lambda: T.refresh(drv, sd), 1, 0),
+            lambda: lti.roundtrip_hopped_block(drv, sd, x[:16000], 100, True), 1, 0, 0),
+        "refresh m=1000": (lambda: T.refresh(drv, sd), 1, 0, 0),
     }
 
 
-def graph_path(T, Q, dev, card: str, cells: dict) -> dict:
+def graph_path(T, S, Q, dev, card: str, cells: dict) -> dict:
     """Part f: every graphed path of ``graph_cells`` against its eager run
     under ``graphs.disabled()`` on the same inputs, bit for bit (parts a-c
     already hold the graphed results against float64, since the graphs are
     the default).  Three calls on one graph: the first call's outputs must
     be unchanged after the next two, which get the same inputs and must
-    return the same outputs.  A cached graph's call must add its K2
-    launches to ``kernels.scan.LAUNCHES``.  Prints each path's peak memory
-    graphed and eager, and each graph's capture time and pool bytes."""
+    return the same outputs.  A cached call must launch its K1 and K2
+    kernels as many times as expected (one K1 launch per ``sdft`` call, one
+    K2 launch per chain block), replays included.  Prints each path's peak
+    memory graphed and eager, and each graph's capture time and pool bytes.
+    Then the hop=1 chains' profiler traces (no device-to-device copy of a
+    block's spectra) and the host synchronisations (``sync_checks``)."""
     from sdft_tpu_torch import graphs
 
     out = {}
-    for label, (call, _, k2) in cells.items():
+    for label, (call, _, k2, k1) in cells.items():
         first = call()
         held = graphs.clone(first)
-        q = Q.LAUNCHES
+        q, s1 = Q.LAUNCHES, S.LAUNCHES
         second = call()
-        launched = Q.LAUNCHES - q
+        launched, launched1 = Q.LAUNCHES - q, S.LAUNCHES - s1
         third = call()
         with graphs.disabled():
             eager = call()
@@ -1240,15 +1272,15 @@ def graph_path(T, Q, dev, card: str, cells: dict) -> dict:
         print(f"  graphs {label}: graphed vs eager bit for bit {same(first, eager)} "
               f"(largest difference {diff:.3e}); first call's outputs unchanged after two "
               f"more {same(first, held)}; the same inputs again equal "
-              f"{same(second, first) and same(third, first)}; K2 launches per cached "
-              f"call {launched} (expected {k2})", flush=True)
+              f"{same(second, first) and same(third, first)}; K1, K2 launches per cached "
+              f"call {launched1}, {launched} (expected {k1}, {k2})", flush=True)
         if not same(first, eager):
             raise AssertionError(f"graphs {label}: the graphed result differs from eager")
         if not (same(first, held) and same(second, first) and same(third, first)):
             raise AssertionError(f"graphs {label}: a later call changed a held output")
-        if launched != k2:
-            raise AssertionError(f"graphs {label}: {launched} K2 launches counted, "
-                                 f"expected {k2}")
+        if (launched1, launched) != (k1, k2):
+            raise AssertionError(f"graphs {label}: {launched1} K1 and {launched} K2 launches "
+                                 f"counted, expected {k1} and {k2}")
         del first, held, second, third, eager
         peaks = {"graphed": peak_gib(call)}
         with graphs.disabled():
@@ -1267,11 +1299,112 @@ def graph_path(T, Q, dev, card: str, cells: dict) -> dict:
           f"{sum(e.pool_bytes for e in entries) / 2**20:.1f} MiB in all [{card}]", flush=True)
     if len(entries) > graphs.MAX_GRAPHS:
         raise AssertionError(f"{len(entries)} graphs cached")
+    for label in HOP1_CHAINS:
+        chain_copies(cells[label][0], cells[label][1], label)
+    sync_checks(T, dev)
     return out
 
 
+#: the hop=1 chains whose traces must hold no copy of a block's spectra
+HOP1_CHAINS = ("roundtrip_hopped hop=1 (K2) m=1000 8x8000",
+               "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000")
+
+
+def chain_copies(call, nb: int, label: str) -> None:
+    """One graphed hop=1 chain call under the profiler: its trace must hold
+    one K2 tile kernel per block and no device-to-device copy as large as
+    one block's spectra (K2 writes them into the stacked outputs; before,
+    each block's were copied there).  A trace that lost K2 events is taken
+    again, at most three times."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = call()
+    block_bytes = out[1][0].numel() * out[1].element_size()
+    del out
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            path = os.path.join(tmp, "chain.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        k2 = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "scan_kernel" in e["name"] and "scan_kernel_rows" not in e["name"])
+        memcpy = [e for e in events if e.get("cat") == "gpu_memcpy"]
+        if any("bytes" not in e.get("args", {}) for e in memcpy):
+            raise AssertionError(f"graphs {label}: the trace's copies carry no byte counts")
+        copies = [int(e["args"]["bytes"]) for e in memcpy]
+        if k2 == nb:
+            break
+    big = [b for b in copies if b >= block_bytes]
+    print(f"  graphs {label}: trace of one graphed call: {k2} K2 tile kernels, "
+          f"{len(copies)} device copies, largest {max(copies, default=0)} bytes, "
+          f"{len(big)} of at least a block's spectra ({block_bytes} bytes)", flush=True)
+    if k2 != nb:
+        raise AssertionError(f"graphs {label}: the trace shows {k2} K2 launches, "
+                             f"expected {nb}")
+    if big:
+        raise AssertionError(f"graphs {label}: {len(big)} copies of a block's spectra")
+
+
+def sync_checks(T, dev) -> None:
+    """A warm graphed ``sdft`` (flagship block, planar f32) and one warm
+    hop=1 chain block must enqueue without a host synchronisation
+    (``torch.cuda.set_sync_debug_mode("error")``).  The eager ``sdft`` on the
+    same inputs runs under "warn": each synchronising call it makes is
+    printed (none is the finding that its wall over device time is host
+    enqueue time)."""
+    import warnings
+
+    from sdft_tpu_torch import graphs
+
+    big = T.Plan(4096, window="hann", precision=T.FAST_PRECISION)
+    drv = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+    st, sd = T.init_state(big, device=dev), T.init_state(drv, device=dev)
+    x = signal(65536, SEED + 65, dev)
+    block = signal(8000, SEED + 66, dev).reshape(1, 8000)
+    for _ in range(2):
+        T.sdft(big, st, x, "planar")
+        T.roundtrip_hopped(drv, sd, block, 1)
+        with graphs.disabled():
+            T.sdft(big, st, x, "planar")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with graphs.disabled():
+                T.sdft(big, st, x, "planar")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch warns "called a synchronizing CUDA operation"; the mode's own
+    # notice ("a prototype feature") is not a synchronisation
+    syncs = [f"{w.filename}:{w.lineno}: {str(w.message).splitlines()[0]}" for w in caught
+             if "synchronizing" in str(w.message) and "prototype" not in str(w.message)]
+    print(f"  sync: eager sdft planar f32 m=4096 65536 (warm, inputs on the card): "
+          f"{len(syncs)} synchronising call(s){': ' if syncs else ''}{'; '.join(syncs)}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.sdft(big, st, x, "planar")
+        T.roundtrip_hopped(drv, sd, block, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  sync: a warm graphed sdft and one hop=1 chain block raised nothing under "
+          "set_sync_debug_mode('error')", flush=True)
+
+
 #: the cells of ``graph_cells`` timed eager against graphed (PERF.md section 5)
-GRAPH_TIMED = ("roundtrip 1x65536 m=4096", "roundtrip 8x32768 m=4096",
+GRAPH_TIMED = ("sdft planar f32 m=4096 65536", "sdft planar bf16 m=4096 65536",
+               "sdft planar f32 m=4096 8x32768",
+               "roundtrip 1x65536 m=4096", "roundtrip 8x32768 m=4096",
                "roundtrip_hopped hop=100 m=1000 8x4000",
                "roundtrip_hopped hop=100 m=1000 8x16000",
                "roundtrip_hopped hop=1 (K2) m=1000 8x8000",
@@ -1295,22 +1428,35 @@ def graph_timings(T, dev, card: str, cells: dict) -> dict:
     def mode(name):
         return graphs.disabled() if name == "eager" else contextlib.nullcontext()
 
+    def enqueue_ms(call, n: int = 5) -> float:
+        """Host time to enqueue one call, the device left to catch up."""
+        call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            call()
+        t = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return t * 1e3 / n
+
     res = {}
     for label in GRAPH_TIMED:
-        call, nb, _ = cells[label]
+        call, nb, _, _ = cells[label]
         walls = {"eager": [], "graphed": []}
         for m in ("eager", "graphed", "graphed", "eager"):
             with mode(m):
                 walls[m].append(wall_time(call, 5, 1) / nb)
-        devs = {}
+        devs, enqueue = {}, {}
         for m in ("eager", "graphed"):
             with mode(m):
                 devs[m] = device_time(call, 3, 1) / nb
+                enqueue[m] = enqueue_ms(call) / nb
         for m in ("eager", "graphed"):
             w = min(walls[m])
             print(f"timing: graphs {label} {m}: wall {'/'.join(f'{v:.4f}' for v in walls[m])} "
                   f"ms per block, device {devs[m]:.4f} ms per block, idle "
-                  f"{max(0.0, 1 - devs[m] / w):.1%} [{card}]", flush=True)
+                  f"{max(0.0, 1 - devs[m] / w):.1%}, host enqueue {enqueue[m]:.4f} ms per block "
+                  f"[{card}]", flush=True)
         print(f"timing: graphs {label}: graphed/eager wall {min(walls['graphed']) / min(walls['eager']):.3f}, "
               f"device {devs['graphed'] / devs['eager']:.3f} [{card}]", flush=True)
         res[label] = {m: (min(walls[m]), devs[m]) for m in walls}
@@ -2113,12 +2259,13 @@ def main() -> int:
     done("part c")
     cells = graph_cells(T, Q, dev)
     S.LAUNCHES = Q.LAUNCHES = 0
-    graph_peaks = graph_path(T, Q, dev, card, cells)
+    graph_peaks = graph_path(T, S, Q, dev, card, cells)
     torch.cuda.synchronize()
     part_f = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
     print(f"graphs part launches: {part_f}", flush=True)
-    if part_f["scan"] <= 0:
-        raise AssertionError("K2 was not launched by the graphed paths")
+    for name, n in part_f.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the graphed paths")
     for name, n in part_f.items():
         launches[name] += n
     done("part f")

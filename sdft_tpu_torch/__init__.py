@@ -11,7 +11,7 @@ from .api import (isdft, isdft_interleaved, refresh, roundtrip, roundtrip_hopped
                   sdft, sdft_hopped, sdft_interleaved, sdft_power)
 from .compat import SDFT, STFT
 from .config import DEFAULT_PRECISION, FAST_PRECISION, Precision
-from .cplx import from_complex, to_complex
+from .cplx import from_complex, planar_to_complex, to_complex
 from .kernels import kernel_supported
 from .metrics import roundtrip_snr_db, snr_db
 from .ops.twofloat import df_to_float64
@@ -44,6 +44,7 @@ __all__ = [
     "isdft_interleaved",
     "kernel_supported",
     "to_complex",
+    "planar_to_complex",
     "from_complex",
     "snr_db",
     "roundtrip_snr_db",

@@ -40,6 +40,12 @@ def to_complex(p) -> np.ndarray:
     return p[..., 0] + 1j * p[..., 1]
 
 
+def planar_to_complex(re, im) -> np.ndarray:
+    """Host-side: planar (re, im) pair (tensors on any device, bfloat16 as
+    float32, or array-likes) -> numpy complex array."""
+    return to_numpy(re) + 1j * to_numpy(im)
+
+
 def from_complex(z, dtype=None) -> np.ndarray:
     """Host-side: complex array -> packed numpy array."""
     if isinstance(z, torch.Tensor):

@@ -29,16 +29,32 @@ function once per key into a ``torch.cuda.CUDAGraph`` and replays it:
     key.  Nothing retries eagerly: CPU tensors never get here (callers
     test ``active`` and run their eager code on the CPU).
 
-``get`` returns the graph itself, whose call returns the static outputs:
-a chain replays one block's graph per block and copies each block's
-outputs out before the next replay (``ops.lti.roundtrip_hopped_chain``).
+``get`` returns the graph itself, whose call returns the static outputs,
+and ``replay`` replays it once and returns them.  A caller of either reads
+the static outputs on the current stream before the next replay of any
+graph is enqueued, in one of two ways:
+
+  * it copies them out (the driver chain at hop > 1 copies each block's
+    outputs into its stack; a state fed to the next replay is copied into
+    the static inputs);
+  * a hand-written kernel reads them straight after the replay: K1 after
+    the prologue graph of ``sdft``/``sdft_power`` (``kernels.spectra.
+    prologue``), K2 after the hop=1 chain's prologue graph, each writing
+    into memory the caller owns.  The kernel is enqueued on the replay's
+    stream before anything else is, so a later replay (of this graph, or
+    of another one that captured its scratch into the same memory) runs
+    after the kernel has read.
 
 At most ``MAX_GRAPHS`` graphs are kept, least recently used evicted
 first.  They all capture into one memory pool per device, which is safe
-because every graph's outputs are copied out before any graph replays
-again, and graphs never replay concurrently on two streams.  Device
-tables that a captured function reads from a cache (``cached``) are held
-by the graph, so a cache eviction never frees memory a graph reads.
+by the rule above, and because graphs never replay concurrently on two
+streams.  An eviction follows the capture of a new graph, which
+synchronizes the device first (``CudaBackend.reserved``), so the kernels
+enqueued after an evicted graph's last replay have read its outputs by
+then; a caller's own references to static outputs keep their memory in
+any case.  Device tables that a captured function reads from a cache
+(``cached``) are held by the graph, so a cache eviction never frees memory
+a graph reads.
 ``clear`` drops every graph (``jax.clear_caches``); inside ``disabled()``
 every path runs eagerly on the card (``jax.disable_jit``), the yardstick
 the graphs are held against.
@@ -262,9 +278,15 @@ def clone(tree):
     return _rebuild(tree, (t.clone() for t in leaves(tree)))
 
 
+def replay(name: str, static: tuple, fn, *args):
+    """The static outputs of ``fn``'s graph replayed on ``args``
+    (overwritten by the next replay, see above)."""
+    return get(name, static, fn, *args)(*args)
+
+
 def run(name: str, static: tuple, fn, *args):
     """``fn(*args)`` by replaying its graph; fresh outputs."""
-    return clone(get(name, static, fn, *args)(*args))
+    return clone(replay(name, static, fn, *args))
 
 
 class Entry(NamedTuple):

@@ -30,7 +30,7 @@ from ..ops.twiddle import synthesis_twiddles
 from ..plan import Plan
 from ..state import State
 from ._build import check, library
-from .spectra import (Prologue, allocate, emit, launch_args, reference_spectra,
+from .spectra import (Prologue, allocate, emit, fill, launch_args, reference_spectra,
                       spectra_prologue, vector_stores)
 
 #: store codes of csrc/common.cuh (enum Store) that the scan kernel takes
@@ -51,23 +51,45 @@ def synthesis_row(plan: Plan, device) -> torch.Tensor:
     return torch.view_as_real(tw).contiguous()
 
 
+def _y_output(pro: Prologue, y):
+    """A new float32 y of shape ``pro.lead``, or ``y`` after checking it."""
+    dev = pro.c0.device
+    if y is None:
+        return torch.empty(pro.lead, dtype=torch.float32, device=dev)
+    if (y.dtype != torch.float32 or tuple(y.shape) != pro.lead or not y.is_contiguous()
+            or y.device != dev):
+        raise ValueError(f"y output: need contiguous float32 {pro.lead} on {dev}, got "
+                         f"{y.dtype} {tuple(y.shape)} on {y.device}")
+    return y
+
+
 def forward_and_y_reference(plan: Plan, pro: Prologue, synth: torch.Tensor,
-                            layout: str | None = "packed"):
-    """The kernel's plain version: (spectra in ``layout`` or None, y)."""
-    out = reference_spectra(plan, pro)
+                            layout: str | None = "packed", out=None, y=None):
+    """The kernel's plain version: (spectra in ``layout`` or None, y),
+    written into ``out`` and ``y`` when given, as the kernel does."""
+    spectra = reference_spectra(plan, pro)
     s = torch.view_as_complex(synth)
     with fp32_matmul(plan.precision):
-        y = out.real @ s.real.contiguous()
+        y_new = spectra.real @ s.real.contiguous()
         if plan.latency != 1.0:
-            y = y - out.imag @ s.imag.contiguous()
-    y = plan.synthesis_weight * y
-    return (emit(out, layout, "float32") if layout else None), y
+            y_new = y_new - spectra.imag @ s.imag.contiguous()
+    y_new = plan.synthesis_weight * y_new
+    if y is not None:
+        y_new = _y_output(pro, y).copy_(y_new)
+    if not layout:
+        return None, y_new
+    packed = emit(spectra, layout, "float32")
+    if out is not None:
+        packed = fill(allocate(pro, plan.dftsize, layout, "float32", out, STRIP)[0], packed)
+    return packed, y_new
 
 
 def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
-                layout: str | None = "packed"):
+                layout: str | None = "packed", out=None, y=None):
     """Launch K2 once on the prologue's CUDA tensors, for its whole batch:
-    (spectra or None, y), y of shape ``pro.lead``."""
+    (spectra or None, y), y of shape ``pro.lead``.  ``out`` (see
+    ``spectra.allocate``) and ``y`` receive the results in place, for
+    example one block's slot of a chain's stacked outputs."""
     global LAUNCHES
     args = launch_args(plan, pro)
     dev = pro.c0.device
@@ -75,14 +97,14 @@ def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
     if (synth.dtype != torch.float32 or tuple(synth.shape) != (m, 2)
             or not synth.is_contiguous() or synth.device != dev):
         raise ValueError(f"synth: need contiguous float32 ({m}, 2) on {dev}")
-    outs, (p0, p1) = (allocate(pro, m, layout, "float32") if layout
+    outs, (p0, p1) = (allocate(pro, m, layout, "float32", out, STRIP) if layout
                       else (None, (None, None)))
+    y = _y_output(pro, y)
     # each chunk's partial row sums, added in chunk order by the second
     # kernel of the launch (csrc/scan.cu: y in a fixed order); the launch
     # refuses a row count other than its build's chunk count
     y_part = torch.empty((-(-m // (32 * STRIP)), math.prod(pro.lead)), dtype=torch.float32,
                          device=dev)
-    y = torch.empty(pro.lead, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_scan_launch(
@@ -94,11 +116,11 @@ def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
     return outs, y
 
 
-def _scan(plan: Plan, pro: Prologue, layout: str | None):
+def _scan(plan: Plan, pro: Prologue, layout: str | None, out=None, y=None):
     synth = synthesis_row(plan, pro.c0.device)
     if pro.c0.device.type == "cpu":
-        return forward_and_y_reference(plan, pro, synth, layout)
-    return launch_scan(plan, pro, synth, layout)
+        return forward_and_y_reference(plan, pro, synth, layout, out, y)
+    return launch_scan(plan, pro, synth, layout, out, y)
 
 
 def forward_and_y(plan: Plan, state: State, samples: torch.Tensor,

@@ -21,6 +21,12 @@ totals GEMM on the (C*nt, K) deltas) and one launch, the counterpart of the
 JAX package's vmap over its Pallas call (sdft_tpu/api.py:57-63): the
 kernel walks the tiles of every channel.
 
+On the card the prologue replays as a captured graph (``prologue``, the
+counterpart of the JAX package's compiled ``_sdft_1d``/``_sdft_2d_pallas``,
+sdft_tpu/api.py:38,58) and K1 is launched eagerly after the replay, on the
+same stream, straight from the graph's static carries into the caller's
+outputs: no spectra buffer is pinned in the graph's pool.
+
 On a CPU tensor the wrapper runs the kernel's plain PyTorch version
 (``spectra_reference``); on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts the kernel's launches, a graph's replays included
@@ -216,6 +222,23 @@ def spectra_prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologu
     return Prologue(delta, c0, phase, new_state, M)
 
 
+def prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologue:
+    """``spectra_prologue``, on the card as a replay of its graph
+    (``graphs``; keyed on the plan and the input shapes).  The returned
+    ``delta`` and ``c0`` are the graph's static outputs, not copies: the
+    next replay of the graph overwrites them, so a kernel that reads them
+    is enqueued on the current stream before that replay (the kernel
+    wrappers launch straight after this call).  The next state is cloned,
+    since the caller keeps it; ``phase`` is the cached table the graph
+    holds.  Elsewhere (CPU tensors, ``graphs.disabled()``) it runs
+    ``spectra_prologue`` eagerly."""
+    if not graphs.active(samples):
+        return spectra_prologue(plan, state, samples)
+    pro = graphs.replay("spectra_prologue", (plan,),
+                        functools.partial(spectra_prologue, plan), state, samples)
+    return pro._replace(state=graphs.clone(pro.state))
+
+
 def reference_spectra(plan: Plan, pro: Prologue) -> torch.Tensor:
     """Plain PyTorch version of the kernels' tile body: (M, m) or (C, M, m)
     complex64 spectra from the prologue's carries, deltas and phase table."""
@@ -243,10 +266,24 @@ def emit(out: torch.Tensor, form: str, dtype: str):
     return (out.real * out.real + out.imag * out.imag).to(tdt)
 
 
+def fill(outs, values):
+    """Copy ``values`` (a tensor or a planar pair) into ``outs`` of the same
+    form; returns ``outs``."""
+    pairs = zip(outs if isinstance(outs, tuple) else (outs,),
+                values if isinstance(values, tuple) else (values,))
+    for o, v in pairs:
+        o.copy_(v)
+    return outs
+
+
 def spectra_reference(plan: Plan, pro: Prologue, form: str = "packed",
-                      dtype: str = "float32"):
-    """The kernel's plain version, in the kernel's output form."""
-    return emit(reference_spectra(plan, pro), form, dtype)
+                      dtype: str = "float32", out=None):
+    """The kernel's plain version, in the kernel's output form (written into
+    ``out`` when given, as the kernel does, see ``allocate``)."""
+    spectra = emit(reference_spectra(plan, pro), form, dtype)
+    if out is None:
+        return spectra
+    return fill(allocate(pro, plan.dftsize, form, dtype, out)[0], spectra)
 
 
 def vector_stores(m: int, strip: int | None = None) -> bool:
@@ -257,13 +294,14 @@ def vector_stores(m: int, strip: int | None = None) -> bool:
     return m % (strip or STRIP) == 0
 
 
-def store_bytes(m: int, form: str, dtype: str) -> int:
+def store_bytes(m: int, form: str, dtype: str, strip: int | None = None) -> int:
     """Bytes of one store instruction of a kernel thread in a store form:
-    the vector store of its STRIP bins of a plane, capped at 16 bytes (the
-    packed form's strip takes two), or with scalar stores one element (two
-    floats for packed)."""
+    the vector store of its ``strip`` bins of a plane (K1's STRIP by
+    default), capped at 16 bytes (K1's packed strip takes two), or with
+    scalar stores one element (two floats for packed)."""
+    strip = strip or STRIP
     elem = getattr(torch, dtype).itemsize * (2 if form == "packed" else 1)
-    return min(16, STRIP * elem) if vector_stores(m) else elem
+    return min(16, strip * elem) if vector_stores(m, strip) else elem
 
 
 def empty_outputs(lead: tuple, m: int, form: str, dtype: str, device):
@@ -279,16 +317,18 @@ def empty_outputs(lead: tuple, m: int, form: str, dtype: str, device):
     return torch.empty(lead + (m,), dtype=tdt, device=device)
 
 
-def allocate(pro: Prologue, m: int, form: str, dtype: str, out=None):
+def allocate(pro: Prologue, m: int, form: str, dtype: str, out=None,
+             strip: int | None = None):
     """Output tensors of a store form for the prologue's block or batch
     (``pro.lead`` + (m[, 2])), as (tensors to return, pointers).  ``out``
-    (a tensor, or the planar pair) is written in place instead of a new
-    allocation."""
+    (a tensor, or the planar pair; a view such as one block of a stack) is
+    written in place instead of a new allocation, aligned for the stores of
+    a kernel with strips of ``strip`` bins (K1's STRIP by default)."""
     dev = pro.c0.device
     outs = empty_outputs(pro.lead, m, form, dtype, dev) if out is None else out
     planes = outs if isinstance(outs, tuple) else (outs,)
     shape = pro.lead + ((m, 2) if form == "packed" else (m,))
-    align = store_bytes(m, form, dtype)
+    align = store_bytes(m, form, dtype, strip)
     for t in planes:
         if (tuple(t.shape) != shape or t.dtype != getattr(torch, dtype)
                 or t.device != dev or not t.is_contiguous() or t.data_ptr() % align):
@@ -347,9 +387,7 @@ def launch_spectra(plan: Plan, pro: Prologue, form: str = "packed",
 
 def _spectra(plan: Plan, pro: Prologue, form: str, dtype: str, out=None):
     if pro.c0.device.type == "cpu":
-        if out is not None:
-            raise ValueError("in-place outputs are for the CUDA kernel")
-        return spectra_reference(plan, pro, form, dtype)
+        return spectra_reference(plan, pro, form, dtype, out)
     return launch_spectra(plan, pro, form, dtype, out)
 
 
@@ -362,20 +400,20 @@ def _check_dtype(out_dtype):
 def forward_block(plan: Plan, state: State, samples: torch.Tensor,
                   layout: str = "packed", out_dtype: str | None = None, out=None):
     """Forward analysis of one channel's (M,) block, or of a (C, M) batch
-    with a batched state, through one prologue and one K1 launch.
+    with a batched state, through one prologue (a graph replay on the card,
+    ``prologue``) and one K1 launch.
 
     Returns (state, dfts): packed (M, m, 2) [(C, M, m, 2)] float32, or with
     layout="planar" a (re, im) pair of (M, m) [(C, M, m)] planes, in
     bfloat16 if ``out_dtype="bfloat16"`` (the scan itself stays float32).
-    On the card ``out`` (tensors of those shapes) receives the spectra in
-    place.
+    ``out`` (tensors of those shapes) receives the spectra in place.
     """
     dtype = _check_dtype(out_dtype)
     if layout not in ("packed", "planar"):
         raise ValueError(f"layout must be 'packed' or 'planar', got {layout!r}")
     if dtype != "float32" and layout != "planar":
         raise ValueError("non-f32 spectra require layout='planar'")
-    pro = spectra_prologue(plan, state, samples)
+    pro = prologue(plan, state, samples)
     return pro.state, _spectra(plan, pro, layout, dtype, out)
 
 
@@ -384,5 +422,5 @@ def forward_block_power(plan: Plan, state: State, samples: torch.Tensor,
     """Forward analysis emitting |dft|^2 as one (M, m) [(C, M, m)] plane
     through K1."""
     dtype = _check_dtype(out_dtype)
-    pro = spectra_prologue(plan, state, samples)
+    pro = prologue(plan, state, samples)
     return pro.state, _spectra(plan, pro, "power", dtype, out)

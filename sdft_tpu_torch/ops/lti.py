@@ -24,7 +24,7 @@ accumulator right after a tile's first sample, demodulated, is
 ``sub`` hops with a stepped partial-totals GEMM (``_stepped_consts_device``).
 ``roundtrip_hopped_chain`` runs the driver protocol (test/test.c:69-83)
 block by block in a Python loop; at hop = 1 plans that the kernels take go
-through K2 (``kernels.scan.forward_and_y``) instead.
+through K2 (``kernels.scan``) instead, straight into the stacked outputs.
 
 The scan-free batched driver segment of the JAX package
 (``_driver_segment_nd``, ``segment=True``) is not reachable from the API
@@ -42,8 +42,8 @@ import torch
 from .. import graphs
 from ..config import fp32_matmul
 from ..cplx import pack
-from ..kernels.scan import forward_and_y
-from ..kernels.spectra import _prefix_tiles, kernel_supported
+from ..kernels.scan import _scan
+from ..kernels.spectra import _prefix_tiles, kernel_supported, spectra_prologue
 from ..plan import Plan
 from ..state import State, batch_state
 from ..windows import WINDOW_HALO, WINDOW_TAPS
@@ -532,12 +532,17 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
     Returns (new_state, hop_dfts, ys): hop_dfts packed (nb, B//hop, m, 2)
     [(nb, C, B//hop, m, 2)], ys (nb, B) [(nb, C, B)].  At hop = 1, plans
     the kernels take run one prologue and one K2 launch per block, for all
-    its channels.
+    its channels, K2 writing the block's spectra and samples straight into
+    the stacked outputs (the counterpart of ``_chain_hop1_pallas_jit``,
+    sdft_tpu/ops/lti.py:945-982, whose scan outputs XLA writes in place).
 
-    On the card one block is captured as a graph (the counterpart of the
-    JAX package's ``lax.scan`` body) and replayed once per block, each
-    block's outputs copied into the stacked outputs; a refresh every N > 1
-    blocks replays a graph of its own (``graphs``).
+    On the card one block's body is captured as a graph (the counterpart of
+    the JAX package's ``lax.scan`` body) and replayed once per block: at
+    hop = 1 the prologue and, at ``refresh_every=1``, the refresh, with K2
+    launched after each replay straight from the graph's static carries;
+    at other hops the whole block, whose outputs are copied into the
+    stacked outputs.  A refresh every N > 1 blocks replays a graph of its
+    own (``graphs``).
     """
     if refresh_every is not None and refresh_every < 1:
         raise ValueError(f"refresh_every must be None or >= 1, got {refresh_every}")
@@ -546,12 +551,19 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
                          f"of hop {hop} >= 1")
     if xs.shape[0] < 1:
         raise ValueError("need at least one block")
-    if hop == 1 and kernel_supported(plan, int(xs.shape[-1])):
+    nb = xs.shape[0]
+    hop1 = hop == 1 and kernel_supported(plan, int(xs.shape[-1]))
+    if hop1:
         name, static = "hop1_chain_body", (plan, refresh_every == 1)
+        hds = torch.empty((*xs.shape, plan.dftsize, 2), dtype=torch.float32,
+                          device=xs.device)
+        ys = torch.empty(xs.shape, dtype=torch.float32, device=xs.device)
 
         def block(st, x):
-            st, hd, y = forward_and_y(plan, st, x)
-            return (refresh_state_any(plan, st) if refresh_every == 1 else st), hd, y
+            pro = spectra_prologue(plan, st, x)
+            if refresh_every == 1:
+                pro = pro._replace(state=refresh_state_any(plan, pro.state))
+            return pro
     else:
         sub = (1 if hop >= DRIVER_TILE_TARGET
                else driver_sub_factor(hop, k_tile or DRIVER_TILE_TARGET))
@@ -564,22 +576,23 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
     refresh = functools.partial(refresh_state_any, plan)
     graphed = graphs.active(xs)
     if graphed:
+        # held for the whole chain: each replay's carries are read by the
+        # K2 launch enqueued straight after it (graphs: static outputs)
         block = graphs.get(name, static, block, state, xs[0])
-        refresh = functools.partial(_replay, "refresh_state_any", (plan,), refresh)
-    nb = xs.shape[0]
+        refresh = functools.partial(graphs.replay, "refresh_state_any", (plan,), refresh)
     since = 0
     for b in range(nb):
-        state, hd, y = block(state, xs[b])
-        if b == 0:
-            hds = hd.new_empty((nb, *hd.shape))
-            ys = y.new_empty((nb, *y.shape))
-        hds[b] = hd
-        ys[b] = y
+        if hop1:
+            pro = block(state, xs[b])
+            _scan(plan, pro, "packed", hds[b], ys[b])
+            state = pro.state
+        else:
+            state, hd, y = block(state, xs[b])
+            if b == 0:
+                hds = hd.new_empty((nb, *hd.shape))
+                ys = y.new_empty((nb, *y.shape))
+            hds[b] = hd
+            ys[b] = y
         if refresh_every not in (None, 1):
             state, since = _chain_refresh(refresh, refresh_every, state, since)
     return (graphs.clone(state) if graphed else state), hds, ys
-
-
-def _replay(name: str, static: tuple, fn, *args):
-    """The static outputs of ``fn``'s graph replayed on ``args``."""
-    return graphs.get(name, static, fn, *args)(*args)

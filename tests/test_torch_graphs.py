@@ -15,6 +15,8 @@ rtol 1e-3 (tests/test_torch_kernels.py).  The ``-m cuda`` tests hold the
 real graphs against the eager run on the card.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from sdft_tpu.ops.lti import _chain_hop1_pallas_jit
 from sdft_tpu_torch import graphs
 from sdft_tpu_torch.kernels import scan, spectra
 from sdft_tpu_torch.ops import lti
+from sdft_tpu_torch.state import stack_states
 
 F64 = J.Precision("float64", "float64")
 
@@ -194,6 +197,10 @@ def test_cpu_tensors_never_reach_the_cache():
     T.roundtrip_hopped(plan, st, xs, 16, refresh_every=2)
     T.roundtrip_hopped(plan, st, xs, 1)
     scan.roundtrip_block_fused(plan, st, xs[0])
+    T.sdft(plan, st, xs[0])
+    T.sdft_power(plan, st, xs[0])
+    T.roundtrip(plan, st, xs[0], lambda z: z)
+    spectra.prologue(plan, st, xs[0])
     T.sdft_hopped(plan, st, xs[0], 16)
     lti.roundtrip_hopped_block(plan, st, xs[0], 16, True)
     T.refresh(plan, st)
@@ -264,6 +271,87 @@ def test_graphed_tables_are_held_past_a_cache_eviction(stub):
     assert any(t is synth for t in held)
     scan.synthesis_row.cache_clear()
     assert scan.synthesis_row(plan, x.device) is not synth
+
+
+def test_graphed_prologue_holds_its_tables_past_a_cache_eviction(stub):
+    """The prologue graph holds the phase and coarse tables it read, and
+    hands the cached phase table to the kernel as its static output."""
+    plan = T.Plan(256, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(plan, device="cpu")
+    x = torch.as_tensor(_signal(2000, seed=2))
+    first = T.sdft(plan, st, x)
+    (graph,) = graphs._GRAPHS.values()
+    _, phase = spectra._spectra_tables(plan, spectra.TILE_K, x.device)
+    coarse = spectra._coarse_rows(plan, spectra.TILE_K, x.device)
+    held = graphs.leaves(graph._held)
+    assert any(t is phase for t in held) and any(t is coarse for t in held)
+    assert graph.outputs.phase is phase
+    spectra._spectra_tables.cache_clear()
+    spectra._coarse_rows.cache_clear()
+    assert spectra._spectra_tables(plan, spectra.TILE_K, x.device)[1] is not phase
+    assert _equal(T.sdft(plan, st, x), first) and graph.outputs.phase is phase
+
+
+def test_prologue_replay_returns_static_carries_and_a_fresh_state(stub):
+    """``spectra.prologue`` hands back the graph's static carries (the
+    kernel reads them straight after the replay) and a clone of the next
+    state, which a later replay leaves as it was."""
+    plan = T.Plan(128, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(plan, channels=2, device="cpu")
+    x1, x2 = torch.as_tensor(_signal(2 * 2 * 333, seed=3)).reshape(2, 2, 333)
+    pro = spectra.prologue(plan, st, x1)
+    (graph,) = graphs._GRAPHS.values()
+    assert graph.name == "spectra_prologue"
+    assert pro.c0 is graph.outputs.c0 and pro.delta is graph.outputs.delta
+    assert all(a is not b for a, b in zip(pro.state, graph.outputs.state))
+    held = graphs.clone(pro)
+    with graphs.disabled():
+        assert _equal(spectra.prologue(plan, st, x1), held)
+    spectra.prologue(plan, pro.state, x2)
+    assert _equal(pro.state, held.state)
+    assert not torch.equal(pro.c0, held.c0)       # the carries are the next block's
+
+
+def test_graphed_spectra_held_by_the_caller_survive_later_calls(stub):
+    plan = T.Plan(256, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(plan, device="cpu")
+    xs = torch.as_tensor(_signal(3 * 500, seed=4)).reshape(3, 500)
+    first = T.sdft(plan, st, xs[0], "planar")
+    held = graphs.clone(first)
+    T.sdft(plan, st, xs[1], "planar")
+    T.sdft_power(plan, first[0], xs[2])
+    assert _equal(first, held)
+    assert stub.captures == 1         # one prologue graph for the key
+
+
+@pytest.mark.parametrize("C", [None, 2])
+@pytest.mark.parametrize("mode", ["graphed", "eager"])
+def test_hop1_chain_writes_each_block_into_its_stack(stub, monkeypatch, C, mode):
+    """One K2 call (here its plain version) per block, whose outputs are the
+    block's slots of the stacked outputs: no per-block copy.  The chain's
+    graph holds the prologue and the refresh, and no K2 launch."""
+    plan = T.Plan(256, window="hann", precision=T.FAST_PRECISION)
+    nb = 3
+    shape = (nb, 200) if C is None else (nb, C, 200)
+    xs = torch.as_tensor(_signal(int(np.prod(shape)), seed=6)).reshape(shape)
+    calls = []
+    real = scan.forward_and_y_reference
+
+    def spy(plan, pro, synth, layout="packed", out=None, y=None):
+        calls.append((out, y))
+        return real(plan, pro, synth, layout, out, y)
+
+    monkeypatch.setattr(scan, "forward_and_y_reference", spy)
+    with graphs.disabled() if mode == "eager" else contextlib.nullcontext():
+        _, hds, ys = T.roundtrip_hopped(plan, T.init_state(plan, C, device="cpu"), xs, 1)
+    assert len(calls) == nb
+    for b, (out, y) in enumerate(calls):
+        assert out.data_ptr() == hds[b].data_ptr() and y.data_ptr() == ys[b].data_ptr()
+    if mode == "graphed":
+        (body,) = graphs.entries()
+        assert body.name == "hop1_chain_body" and body.launches == {}
+    else:
+        assert graphs.entries() == []
 
 
 # -- every graphed path against its JAX counterpart ----------------------------------
@@ -418,6 +506,65 @@ def _case_refresh(C):
     return "refresh", port, jax, check
 
 
+def _case_spectra(entry, C):
+    """``sdft``, ``sdft_power`` and ``roundtrip(transform)`` on a float32
+    kernel plan: the prologue graph, then K1's plain version.  Two chained
+    calls on different ragged inputs; a batch's channels sit at different
+    offsets (states made by the JAX package, channel c after 100 + 70*c
+    samples).  Gates: the f32 class of tests/test_torch_slice.py (packed
+    2e-6 abs and 1e-4 rel), bf16 planes 8e-3 and |dft|^2 6e-6 of scale
+    (chip_smoke's gates against float64), transform round trip 1e-5."""
+    jp = J.Plan(256, window="blackman", latency=0.5, precision=J.FAST_PRECISION)
+    tp = T.plan_from_jax(jp)
+    lead = _signal(300, seed=50)
+    leads = [J.sdft(jp, J.init_state(jp), lead[:100 + 70 * c])[0]
+             for c in range(C or 1)]
+    arrays = {k: np.stack([np.asarray(a) for a in v]) if C else np.asarray(v[0])
+              for k, v in zip(("offset", "delayline", "accumulator"), zip(*leads))}
+    xs = _signal(2 * (C or 1) * 300, seed=51).reshape((2, C, 300) if C else (2, 300))
+    bins = np.arange(256) < 40
+    calls = {
+        "sdft": (lambda st, x: T.sdft(tp, st, x), lambda st, x: J.sdft(jp, st, x)),
+        "sdft-planar-bf16": (lambda st, x: T.sdft(tp, st, x, "planar", "bfloat16"),
+                             lambda st, x: J.sdft(jp, st, x, "planar", "bfloat16")),
+        "sdft_power": (lambda st, x: T.sdft_power(tp, st, x),
+                       lambda st, x: J.sdft_power(jp, st, x)),
+        "roundtrip-transform": (
+            lambda st, x: T.roundtrip(tp, st, x, lambda z: z * torch.as_tensor(bins)),
+            lambda st, x: J.roundtrip(jp, st, x, lambda z: z * bins)),
+    }
+    t_call, j_call = calls[entry]
+
+    def chain(call, st):
+        outs = []
+        for x in xs:
+            st, out = call(st, x)
+            outs.append(out)
+        return st, outs
+
+    def port():
+        return chain(t_call, T.state_from_arrays(arrays, device="cpu"))
+
+    def jax():
+        return chain(j_call, J.state_from_arrays(arrays))
+
+    def check(got, want):
+        for g, w in zip(got[1], want[1]):
+            if entry == "sdft":
+                np.testing.assert_allclose(_np(g), _np(w), atol=2e-6, rtol=1e-4)
+            elif entry == "sdft-planar-bf16":
+                g = T.planar_to_complex(*g)
+                w = np.asarray(w[0], np.float32) + 1j * np.asarray(w[1], np.float32)
+                assert _rel(g, w) <= 8e-3
+            elif entry == "sdft_power":
+                assert _rel(g, w) <= 6e-6
+            else:
+                np.testing.assert_allclose(_np(g), _np(w), atol=1e-5)
+        np.testing.assert_allclose(_np(got[0].accumulator), _np(want[0].accumulator),
+                                   atol=4 * np.finfo(np.float32).eps * 900)
+    return "spectra_prologue", port, jax, check
+
+
 CASES = {
     "roundtrip": lambda: _case_roundtrip(None),
     "roundtrip-batch": lambda: _case_roundtrip(2),
@@ -434,6 +581,14 @@ CASES = {
     "hopped_block-subhop": lambda: _case_hopped_block(3, False),
     "refresh": lambda: _case_refresh(None),
     "refresh-batch": lambda: _case_refresh(3),
+    "sdft": lambda: _case_spectra("sdft", None),
+    "sdft-batch": lambda: _case_spectra("sdft", 3),
+    "sdft-planar-bf16": lambda: _case_spectra("sdft-planar-bf16", None),
+    "sdft-planar-bf16-batch": lambda: _case_spectra("sdft-planar-bf16", 3),
+    "sdft_power": lambda: _case_spectra("sdft_power", None),
+    "sdft_power-batch": lambda: _case_spectra("sdft_power", 3),
+    "roundtrip-transform": lambda: _case_spectra("roundtrip-transform", None),
+    "roundtrip-transform-batch": lambda: _case_spectra("roundtrip-transform", 2),
 }
 
 
@@ -492,7 +647,23 @@ def _card_paths(dev):
     st2 = T.init_state(big, channels=2, device=dev)
     st_drv = T.init_state(drv, device=dev)
     st_drv2 = T.init_state(drv, channels=2, device=dev)
+    st_drv8 = T.init_state(drv, channels=8, device=dev)
+    lead = x[:3000 + 3 * 700]
+    st_lead = T.sdft(big, st_big, lead[:3000])[0]
+    st_batch = stack_states([T.sdft(big, st_big, lead[:300 + 700 * c])[0] for c in range(3)])
+    xb = x[:3 * 8229].reshape(3, 8229)
+    low = torch.arange(4096, device=dev) < 400
     return {
+        "sdft-packed": lambda: T.sdft(big, st_lead, x[:16384]),
+        "sdft-planar": lambda: T.sdft(big, st_lead, x[:16384], "planar"),
+        "sdft-planar-bf16": lambda: T.sdft(big, st_lead, x[:16384], "planar", "bfloat16"),
+        "sdft_power": lambda: T.sdft_power(big, st_lead, x[:16384]),
+        "sdft_power-bf16": lambda: T.sdft_power(big, st_lead, x[:16384], "bfloat16"),
+        "sdft-batch": lambda: T.sdft(big, st_batch, xb, "planar"),
+        "sdft-batch-bf16": lambda: T.sdft(big, st_batch, xb, "planar", "bfloat16"),
+        "roundtrip-transform": lambda: T.roundtrip(big, st_batch, xb, lambda z: z * low),
+        "hop1-k2-8ch": lambda: T.roundtrip_hopped(
+            drv, st_drv8, x[:64000].reshape(4, 8, 2000), 1),
         "roundtrip": lambda: T.roundtrip(big, st_big, x[:16384]),
         "roundtrip-batch": lambda: T.roundtrip(big, st2, x[:32768].reshape(2, -1)),
         "driver-hop100": lambda: T.roundtrip_hopped(drv, st_drv, x.reshape(4, 16000), 100),
@@ -510,7 +681,9 @@ def _card_paths(dev):
 
 CARD_PATHS = ["roundtrip", "roundtrip-batch", "driver-hop100", "driver-hop4-refresh2",
               "hop1-k2", "hop1-k2-batch", "fused-k2", "sdft_hopped", "hopped_block",
-              "refresh"]
+              "refresh", "sdft-packed", "sdft-planar", "sdft-planar-bf16", "sdft_power",
+              "sdft_power-bf16", "sdft-batch", "sdft-batch-bf16", "roundtrip-transform",
+              "hop1-k2-8ch"]
 
 
 @pytest.mark.cuda
@@ -579,8 +752,10 @@ def test_cuda_k2_launches_count_every_replay(cuda_device):
         st = T.init_state(plan, None if len(shape) == 2 else 2, device=cuda_device)
         blocks = xs[:int(np.prod(shape))].reshape(shape)
         T.roundtrip_hopped(plan, st, blocks, 1)
+        # the body graph holds the prologue and the refresh; K2 is launched
+        # after each replay, into the stacked outputs
         body = [e for e in graphs.entries() if e.name == "hop1_chain_body"][-1]
-        assert body.launches == {"scan": per_block}
+        assert body.launches == {}
         q = scan.LAUNCHES
         T.roundtrip_hopped(plan, st, blocks, 1)
         assert scan.LAUNCHES - q == shape[0] * per_block
@@ -589,6 +764,46 @@ def test_cuda_k2_launches_count_every_replay(cuda_device):
     scan.roundtrip_block_fused(plan, T.init_state(plan, device=cuda_device), xs[:4000])
     # two warm-up launches and one replay, then one replay
     assert scan.LAUNCHES - q == graphs.WARMUP_CALLS + 2
+
+
+@pytest.mark.cuda
+def test_cuda_prologue_graph_eviction_frees_no_pending_carries(cuda_device, monkeypatch):
+    """With one graph kept, two shapes alternating back to back evict each
+    other's prologue graph on every call, with no synchronisation between
+    the calls: every output equals the eager one."""
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 1)
+    plan = T.Plan(4096, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(plan, device=cuda_device)
+    xs = [torch.as_tensor(_signal(n, seed=35 + n), device=cuda_device) for n in (16384, 12288)]
+    with graphs.disabled():
+        want = [T.sdft(plan, st, x, "planar") for x in xs]
+    got = [T.sdft(plan, st, xs[i % 2], "planar") for i in range(6)]
+    torch.cuda.synchronize()
+    assert [e.name for e in graphs.entries()] == ["spectra_prologue"]
+    for i, g in enumerate(got):
+        assert _equal(g, want[i % 2]), i
+
+
+@pytest.mark.cuda
+def test_cuda_warm_graphed_sdft_and_chain_block_never_sync(cuda_device):
+    """A warm graphed ``sdft`` and one warm hop=1 chain block enqueue their
+    work without a host synchronisation."""
+    big = T.Plan(4096, window="hann", precision=T.FAST_PRECISION)
+    drv = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+    st, sd = T.init_state(big, device=cuda_device), T.init_state(drv, device=cuda_device)
+    x = torch.as_tensor(_signal(65536, seed=36), device=cuda_device)
+    block = x[:8000].reshape(1, 8000)
+    for _ in range(2):
+        T.sdft(big, st, x, "planar")
+        T.roundtrip_hopped(drv, sd, block, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.sdft(big, st, x, "planar")
+        T.roundtrip_hopped(drv, sd, block, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -300,9 +300,15 @@ def test_allocate_validates_in_place_outputs():
     for bad in ((out[0][1], out[1][1].float()), (out[0][:, :50], out[1][:, :50])):
         with pytest.raises(ValueError):
             spectra.allocate(pro, 256, "planar", "bfloat16", bad)
-    with pytest.raises(ValueError, match="CUDA"):
-        spectra.forward_block(tp, T.init_state(tp, device="cpu"), torch.as_tensor(_signal(100)),
-                              out=spectra.empty_outputs((100,), 256, "packed", "float32", "cpu"))
+    # the plain version fills ``out`` in place on the CPU, as the kernel
+    # does on the card, and refuses malformed outputs alike
+    x = torch.as_tensor(_signal(100))
+    _, want = spectra.forward_block(tp, T.init_state(tp, device="cpu"), x)
+    dest = spectra.empty_outputs((100,), 256, "packed", "float32", "cpu")
+    _, got = spectra.forward_block(tp, T.init_state(tp, device="cpu"), x, out=dest)
+    assert got is dest and torch.equal(dest, want)
+    with pytest.raises(ValueError, match="packed output"):
+        spectra.forward_block(tp, T.init_state(tp, device="cpu"), x, out=dest[:50])
 
 
 BATCH_CASES = [  # (m, window, roi, C, M)

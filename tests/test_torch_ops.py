@@ -246,6 +246,27 @@ def test_channel_batch_matches_jax():
     assert T.reset_state(tp, ts).accumulator.abs().max() == 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_planar_to_complex_matches_jax(dtype):
+    """The same planes (JAX arrays on the JAX side; torch tensors, numpy
+    arrays and lists on the port's) give equal values and the same result
+    dtype: complex64 for float32 and bfloat16 planes, complex128 for
+    float64."""
+    from sdft_tpu.cplx import planar_to_complex as j_planar_to_complex
+
+    re, im = _signal(2 * 37, seed=40).reshape(2, 37)
+    jre, jim = (jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in (re, im))
+    want = j_planar_to_complex(jre, jim)
+    tre, tim = (torch.as_tensor(a).to(getattr(torch, dtype)) for a in (re, im))
+    host = tuple(t.float().numpy() if dtype == "bfloat16" else t.numpy() for t in (tre, tim))
+    for pair in ((tre, tim), host):
+        got = T.planar_to_complex(*pair)
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(T.planar_to_complex([1.0, 2.0], [3.0, 4.0]),
+                                  [1 + 3j, 2 + 4j])
+
+
 @pytest.mark.parametrize("make", ["init_state", "state_from_arrays"])
 def test_state_constructors_default_to_the_card_and_raise_without_one(make, monkeypatch):
     """States are made on cuda:0 unless the caller asks for the CPU; with
