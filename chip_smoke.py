@@ -6,8 +6,10 @@
 
 The second form runs only the sharded programs, one NCCL rank per card,
 on the meshes of ``CARD_MESHES`` against float64 and the unsharded call,
-times the flagship spectra on 4 cards beside one, and runs the CLI's
-``--mesh 1x4x1`` under torchrun against the one-card CLI.  The first form:
+and graphed (each rank's body with its NCCL collectives in its graphs)
+against eager, bit for bit on every rank; times the flagship spectra on 4
+cards, graphed and eager, beside one; and runs the CLI's ``--mesh 1x4x1``
+under torchrun against the one-card CLI.  The first form:
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -60,7 +62,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                time shard) over 4 chained blocks of 8000, run twice and
                held bit for bit, and on 2 channels x 8000;
                the CLI with ``--mesh 1x1x1 --fd32``.  Each is held against
-               its unsharded counterpart and float64.  K1 must have been
+               its unsharded counterpart and float64.  Then every program
+               graphed (each rank's body a graph replay, K1/K2 launched
+               after it) against its eager run under ``graphs.disabled()``,
+               bit for bit, with one K1 or K2 launch per time shard per
+               cached call; the sharded driver chain's profiler trace (one
+               copy of a block's spectra per block, into the stack); a warm
+               graphed ``sharded_sdft_pallas`` and one warm
+               ``sharded_roundtrip_hopped`` block under
+               ``set_sync_debug_mode("error")``.  K1 must have been
                launched by ``sharded_sdft_pallas`` and K2 by
                ``sharded_roundtrip_pallas``;
      e. tools  ``bench --mesh 1x1x1`` inside part d's group (its JSON line,
@@ -123,11 +133,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                transform (device-bound), and ``run_hopped`` against its
                per-block loop (host clock, in turns, median and range);
                the float32x2 tier's two legs beside float64 ``ops``, with
-               their peak device memory; each sharded program of part d
-               beside its unsharded call (wall, device, idle share, in
-               turns), and the flagship K1 program's device time by
-               kernel; part f's cells eager against graphed in turns (wall,
-               device, idle and host enqueue time per block; the flagship
+               their peak device memory; each sharded program of part d,
+               graphed and eager, beside its unsharded call (wall, device,
+               idle share, host enqueue time, peak memory, in turns), the
+               flagship K1 program's device time by kernel, and the host
+               time of the DTensor steps around the graphs; part f's
+               cells eager against graphed in turns (wall, device, idle
+               and host enqueue time per block; the flagship
                ``sdft`` planar f32 and bf16, the 8 x 32768 batch and the
                hop=1 chain on 8 blocks of 8 channels x 8000 among them),
                ``Streamer.run`` and ``run_hopped``
@@ -1310,19 +1322,22 @@ HOP1_CHAINS = ("roundtrip_hopped hop=1 (K2) m=1000 8x8000",
                "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000")
 
 
-def chain_copies(call, nb: int, label: str) -> None:
-    """One graphed hop=1 chain call under the profiler: its trace must hold
-    one K2 tile kernel per block and no device-to-device copy as large as
-    one block's spectra (K2 writes them into the stacked outputs; before,
-    each block's were copied there).  A trace that lost K2 events is taken
-    again, at most three times."""
+def chain_copies(call, nb: int, label: str, k2: bool = True, stack_copies: int = 0) -> None:
+    """One graphed chain call of ``nb`` blocks under the profiler: its trace
+    must hold one K2 tile kernel per block (``k2``) and at most
+    ``stack_copies`` device-to-device copies as large as one block's
+    spectra: none in a hop=1 chain (K2 writes them into the stacked
+    outputs; before, each block's were copied there), one per block in the
+    sharded driver chain (each replay's outputs copied into the stack).  A
+    trace that lost K2 events is taken again, at most three times."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
 
     out = call()
-    block_bytes = out[1][0].numel() * out[1].element_size()
-    del out
+    hd = out[1].to_local() if hasattr(out[1], "to_local") else out[1]
+    block_bytes = hd[0].numel() * hd.element_size()
+    del out, hd
     torch.cuda.synchronize()
     for _ in range(3):
         with tempfile.TemporaryDirectory() as tmp:
@@ -1333,22 +1348,23 @@ def chain_copies(call, nb: int, label: str) -> None:
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
-        k2 = sum(1 for e in events if e.get("cat") == "kernel"
-                 and "scan_kernel" in e["name"] and "scan_kernel_rows" not in e["name"])
+        n_k2 = sum(1 for e in events if e.get("cat") == "kernel"
+                   and "scan_kernel" in e["name"] and "scan_kernel_rows" not in e["name"])
         memcpy = [e for e in events if e.get("cat") == "gpu_memcpy"]
         if any("bytes" not in e.get("args", {}) for e in memcpy):
             raise AssertionError(f"graphs {label}: the trace's copies carry no byte counts")
         copies = [int(e["args"]["bytes"]) for e in memcpy]
-        if k2 == nb:
+        if n_k2 == (nb if k2 else 0):
             break
     big = [b for b in copies if b >= block_bytes]
-    print(f"  graphs {label}: trace of one graphed call: {k2} K2 tile kernels, "
+    print(f"  graphs {label}: trace of one graphed call: {n_k2} K2 tile kernels, "
           f"{len(copies)} device copies, largest {max(copies, default=0)} bytes, "
-          f"{len(big)} of at least a block's spectra ({block_bytes} bytes)", flush=True)
-    if k2 != nb:
-        raise AssertionError(f"graphs {label}: the trace shows {k2} K2 launches, "
-                             f"expected {nb}")
-    if big:
+          f"{len(big)} of at least a block's spectra ({block_bytes} bytes; at most "
+          f"{stack_copies} allowed)", flush=True)
+    if n_k2 != (nb if k2 else 0):
+        raise AssertionError(f"graphs {label}: the trace shows {n_k2} K2 launches, "
+                             f"expected {nb if k2 else 0}")
+    if len(big) > stack_copies:
         raise AssertionError(f"graphs {label}: {len(big)} copies of a block's spectra")
 
 
@@ -1401,6 +1417,18 @@ def sync_checks(T, dev) -> None:
           "set_sync_debug_mode('error')", flush=True)
 
 
+def enqueue_ms(call, n: int = 5) -> float:
+    """Host time to enqueue one call, the device left to catch up."""
+    call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        call()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t * 1e3 / n
+
+
 #: the cells of ``graph_cells`` timed eager against graphed (PERF.md section 5)
 GRAPH_TIMED = ("sdft planar f32 m=4096 65536", "sdft planar bf16 m=4096 65536",
                "sdft planar f32 m=4096 8x32768",
@@ -1427,17 +1455,6 @@ def graph_timings(T, dev, card: str, cells: dict) -> dict:
 
     def mode(name):
         return graphs.disabled() if name == "eager" else contextlib.nullcontext()
-
-    def enqueue_ms(call, n: int = 5) -> float:
-        """Host time to enqueue one call, the device left to catch up."""
-        call()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            call()
-        t = time.perf_counter() - t
-        torch.cuda.synchronize()
-        return t * 1e3 / n
 
     res = {}
     for label in GRAPH_TIMED:
@@ -1544,24 +1561,37 @@ def f64_chunks(T, plan, x, chunk: int):
 
 
 def timed_pair(name: str, sharded, unsharded, reps: int, card: str) -> dict:
-    """Wall (CUDA events), device (profiler), the device's idle share and
-    the peak memory above the inputs of a sharded program beside its
-    unsharded counterpart, in turns."""
+    """Wall (CUDA events), device (profiler), the device's idle share, the
+    host enqueue time and the peak memory above the inputs of a sharded
+    program graphed (the default) and eager (``graphs.disabled()``), beside
+    its unsharded counterpart (graphed), in turns: unsharded, graphed,
+    eager, eager, graphed, unsharded."""
+    import contextlib
+
+    from sdft_tpu_torch import graphs
+
+    fns = {"unsharded": unsharded, "sharded graphed": sharded, "sharded eager": sharded}
+
+    def mode(who):
+        return graphs.disabled() if who == "sharded eager" else contextlib.nullcontext()
+
     res = {}
-    for who, fn in (("unsharded", unsharded), ("sharded", sharded),
-                    ("sharded", sharded), ("unsharded", unsharded)):
-        w, d = wall_time(fn, reps, 1), device_time(fn, reps, 1)
-        res.setdefault(who, []).append((w, d))
+    for who in ("unsharded", "sharded graphed", "sharded eager", "sharded eager",
+                "sharded graphed", "unsharded"):
+        with mode(who):
+            res.setdefault(who, []).append((wall_time(fns[who], reps, 1),
+                                            device_time(fns[who], reps, 1)))
     out = {}
     for who, vals in res.items():
         w = min(v[0] for v in vals)
         d = min(v[1] for v in vals)
-        peak = peak_gib(sharded if who == "sharded" else unsharded)
-        out[who] = (w, d, peak)
+        with mode(who):
+            peak, enqueue = peak_gib(fns[who]), enqueue_ms(fns[who])
+        out[who] = (w, d, peak, enqueue)
         print(f"timing: {name} {who}: wall {'/'.join(f'{v[0]:.4f}' for v in vals)} ms, "
               f"device {'/'.join(f'{v[1]:.4f}' for v in vals)} ms, idle "
-              f"{max(0.0, 1 - d / w):.1%} (best of turns), peak {peak:.3f} GiB above the "
-              f"inputs [{card}]", flush=True)
+              f"{max(0.0, 1 - d / w):.1%} (best of turns), host enqueue {enqueue:.4f} ms, "
+              f"peak {peak:.3f} GiB above the inputs [{card}]", flush=True)
     return out
 
 
@@ -1842,7 +1872,147 @@ def sharded_path(T, S, Q, dev, card: str, cli_ref: dict, mesh) -> tuple:
           f"{np.abs(dm - d32).max():.3e}, wav {np.abs(ym - y32).max():.3e}; "
           f"{t_cli:.2f} s host clock [{card}]", flush=True)
     errs["shard_cli_s"] = t_cli
+    sharded_graph_path(T, S, Q, dev, card, mesh)
     return errs, jobs, count.by
+
+
+def local_leaves(out) -> list:
+    """The local tensors of a sharded program's output (DTensors, a State
+    of DTensors, tuples of them), in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in local_leaves(v)]
+    return [out.to_local() if hasattr(out, "to_local") else out]
+
+
+def sharded_cells(T, dev, mesh) -> dict:
+    """Every sharded program at part d's shapes, on carried (non-zero)
+    states: {label: (call, K1 launches, K2 launches per call and time
+    shard)}."""
+    from sdft_tpu_torch import parallel as par
+
+    f32 = T.FAST_PRECISION
+    big = T.Plan(SHARD_M, window="hann", precision=f32)
+    drv = T.Plan(SHARD_HOP_M, window="hann", precision=f32)
+    lead = signal(3000, SEED + 56, dev)
+    st1 = T.sdft(big, T.init_state(big, channels=1, device=dev), lead[None])[0]
+    C = SHARD_BATCH[0]
+    st8 = T.sdft(big, T.init_state(big, channels=C, device=dev), lead[:1000].repeat(C, 1))[0]
+    sd = T.sdft(drv, T.init_state(drv, channels=1, device=dev), lead[None])[0]
+    sd2 = T.sdft(drv, T.init_state(drv, channels=2, device=dev), lead[:1000].repeat(2, 1))[0]
+    x = signal(SHARD_BLOCK, SEED + 55, dev)[None]
+    xb = signal(SHARD_BATCH[0] * SHARD_BATCH[1], SEED + 57, dev).reshape(SHARD_BATCH)
+    xs = x[:, :SHARD_SCAN_BLOCK]
+    d16 = T.sdft(big, st1, xs)[1]
+    hop, B, nb = SHARD_HOP, SHARD_HOP_BLOCK, SHARD_HOP_BLOCKS
+    xh = signal(nb * B, SEED + 58, dev).reshape(nb, 1, B)
+    xy = signal(2 * SHARD_Y_BLOCK, SEED + 59, dev).reshape(2, SHARD_Y_BLOCK)
+    low = lambda z, bins: z * (bins < 400)  # noqa: E731
+    return {
+        f"sharded_sdft_pallas planar f32 m={SHARD_M} 1x{SHARD_BLOCK}": (
+            lambda: par.sharded_sdft_pallas(big, mesh, st1, x, layout="planar"), 1, 0),
+        f"sharded_sdft_pallas planar bf16 m={SHARD_M} 1x{SHARD_BLOCK}": (
+            lambda: par.sharded_sdft_pallas(big, mesh, st1, x, layout="planar",
+                                            spectra_dtype="bfloat16"), 1, 0),
+        f"sharded_sdft_pallas planar f32 m={SHARD_M} {SHARD_BATCH[0]}x{SHARD_BATCH[1]}": (
+            lambda: par.sharded_sdft_pallas(big, mesh, st8, xb, layout="planar"), 1, 0),
+        f"sharded_sdft (K1) m={SHARD_M} 1x{SHARD_SCAN_BLOCK}": (
+            lambda: par.sharded_sdft(big, mesh, st1, xs), 1, 0),
+        f"sharded_sdft scan form m={SHARD_M} 1x{SHARD_SCAN_BLOCK}": (
+            lambda: par.sharded_sdft(big, mesh, st1, xs, use_pallas=False), 0, 0),
+        f"sharded_isdft m={SHARD_M} 1x{SHARD_SCAN_BLOCK}": (
+            lambda: par.sharded_isdft(big, mesh, d16), 0, 0),
+        f"sharded_roundtrip (collapsed) m={SHARD_M} 1x{SHARD_BLOCK}": (
+            lambda: par.sharded_roundtrip(big, mesh, st1, x), 0, 0),
+        f"sharded_roundtrip scan form m={SHARD_M} 1x{SHARD_SCAN_BLOCK}": (
+            lambda: par.sharded_roundtrip(big, mesh, st1, xs, collapsed=False), 0, 0),
+        f"sharded_roundtrip(low-pass) m={SHARD_M} 1x{SHARD_SCAN_BLOCK}": (
+            lambda: par.sharded_roundtrip(big, mesh, st1, xs, transform=low), 0, 0),
+        f"sharded_sdft_hopped hop={hop} m={SHARD_HOP_M} 1x{nb * B}": (
+            lambda: par.sharded_sdft_hopped(drv, mesh, sd, xh.reshape(1, -1), hop), 0, 0),
+        SHARD_CHAIN: (lambda: par.sharded_roundtrip_hopped(drv, mesh, sd, xh, hop), 0, 0),
+        f"sharded_roundtrip_pallas (K2) m={SHARD_HOP_M} 1x{SHARD_Y_BLOCK}": (
+            lambda: par.sharded_roundtrip_pallas(drv, mesh, sd, xy[:1]), 0, 1),
+        f"sharded_roundtrip_pallas (K2) m={SHARD_HOP_M} 2x{SHARD_Y_BLOCK}": (
+            lambda: par.sharded_roundtrip_pallas(drv, mesh, sd2, xy), 0, 1),
+    }
+
+
+#: the sharded driver chain of ``sharded_cells``
+SHARD_CHAIN = (f"sharded_roundtrip_hopped hop={SHARD_HOP} m={SHARD_HOP_M} "
+               f"{SHARD_HOP_BLOCKS}x{SHARD_HOP_BLOCK}")
+
+
+def sharded_graph_path(T, S, Q, dev, card: str, mesh) -> None:
+    """Part d, the graphs: every sharded program of ``sharded_cells`` on the
+    one-rank mesh, graphed (the default) against its eager run under
+    ``graphs.disabled()``, bit for bit; a cached call replays the program's
+    own graphs and launches K1 and K2 once per time shard; each sharded
+    graph's capture time and pool bytes; the sharded driver chain's
+    profiler trace (one copy of a block's spectra per block, into the
+    stack); a warm graphed ``sharded_sdft_pallas`` and one warm
+    ``sharded_roundtrip_hopped`` block under ``set_sync_debug_mode("error")``."""
+    from sdft_tpu_torch import graphs
+
+    cells = sharded_cells(T, dev, mesh)
+    nt = mesh.shape[1]
+    for label, (call, k1, k2) in cells.items():
+        first = local_leaves(call())
+        q, s1 = Q.LAUNCHES, S.LAUNCHES
+        second = local_leaves(call())
+        launched = (S.LAUNCHES - s1, Q.LAUNCHES - q)
+        last = graphs.entries()[-1].name     # the graph the cached call replayed last
+        again = same(first, second)
+        del second
+        with graphs.disabled():
+            eager = local_leaves(call())
+        torch.cuda.synchronize()
+        diff = max(maxerr(a, b) for a, b in zip(first, eager))
+        print(f"  sharded graphs {label}: graphed vs eager bit for bit {same(first, eager)} "
+              f"(largest difference {diff:.3e}); the same inputs again equal {again}; K1, K2 "
+              f"launches per cached call {launched} (expected {k1 * nt}, {k2 * nt}); last graph "
+              f"replayed {last}", flush=True)
+        if not same(first, eager):
+            raise AssertionError(f"sharded graphs {label}: the graphed result differs from eager")
+        if not again:
+            raise AssertionError(f"sharded graphs {label}: a second call differs")
+        if launched != (k1 * nt, k2 * nt):
+            raise AssertionError(f"sharded graphs {label}: {launched} K1, K2 launches, expected "
+                                 f"one per time shard")
+        if not last.startswith("sharded_"):
+            raise AssertionError(f"sharded graphs {label}: no sharded graph replayed")
+        del first, eager
+    for e in graphs.entries():
+        if e.name.startswith("sharded_"):
+            shapes = " ".join("x".join(map(str, s[0])) or "()" for s in e.key[2])
+            print(f"  graph {e.name} [{shapes}]: capture {e.capture_s * 1e3:.1f} ms (warm-up "
+                  f"included), pool +{e.pool_bytes / 2**20:.1f} MiB [{card}]", flush=True)
+    chain_copies(cells[SHARD_CHAIN][0], SHARD_HOP_BLOCKS, SHARD_CHAIN, k2=False,
+                 stack_copies=SHARD_HOP_BLOCKS)
+    warm = (cells[f"sharded_sdft_pallas planar f32 m={SHARD_M} 1x{SHARD_BLOCK}"][0],
+            cells[SHARD_CHAIN][0])
+    one_block = sharded_one_block(T, dev, mesh)
+    for call in (*warm, one_block):
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warm[0]()
+        one_block()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  sync: a warm graphed sharded_sdft_pallas and one sharded_roundtrip_hopped block "
+          "raised nothing under set_sync_debug_mode('error')", flush=True)
+
+
+def sharded_one_block(T, dev, mesh):
+    """One block of the sharded driver chain at part d's shapes."""
+    from sdft_tpu_torch import parallel as par
+
+    drv = T.Plan(SHARD_HOP_M, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(drv, channels=1, device=dev)
+    x = signal(SHARD_HOP_BLOCK, SEED + 69, dev).reshape(1, 1, SHARD_HOP_BLOCK)
+    return lambda: par.sharded_roundtrip_hopped(drv, mesh, st, x, SHARD_HOP)
 
 
 #: the port's examples, driven on the card by part e
@@ -1965,14 +2135,62 @@ def tools_path(T, S, Q, card: str) -> dict:
     return res
 
 
-def sharded_timings(jobs: dict, card: str) -> dict:
-    """Phase 5, the sharded programs: each beside its unsharded call, in
-    turns, and the flagship K1 program's device time by kernel."""
+def sharded_timings(T, jobs: dict, card: str, dev, mesh) -> dict:
+    """Phase 5, the sharded programs: each graphed and eager beside its
+    unsharded call, in turns; the flagship K1 program's device time by
+    kernel; the host time of the DTensor steps around the graphs."""
     out = {key: timed_pair(name, a, b, reps, card) for key, (name, a, b, reps) in jobs.items()}
     _, a, b, _ = jobs["shard_k1"]
     for who, fn in (("sharded_sdft_pallas", a), ("sdft", b)):
         print(f"timing: device time by kernel, {who} 1x{SHARD_BLOCK}: {top_kernels(fn)} "
               f"[{card}]", flush=True)
+    out["dtensor_ms"] = dtensor_steps(T, dev, card, mesh)
+    return out
+
+
+def dtensor_steps(T, dev, card: str, mesh) -> dict:
+    """Host ms per call of the DTensor steps that stay outside the graphs
+    (``parallel.sharded``: taking this rank's shard of the inputs,
+    assembling the outputs), median of 20 calls after 3, at the shapes of
+    the flagship ``sharded_sdft_pallas`` and of the hop=100 driver chain."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from sdft_tpu_torch.parallel import sharded as sh
+
+    plan = T.Plan(SHARD_M, window="hann", precision=T.FAST_PRECISION)
+    drv = T.Plan(SHARD_HOP_M, window="hann", precision=T.FAST_PRECISION)
+    st, sd = (T.init_state(p, channels=1, device=dev) for p in (plan, drv))
+    x = signal(SHARD_BLOCK, SEED + 67, dev)[None]
+    xh = signal(SHARD_HOP_BLOCKS * SHARD_HOP_BLOCK, SEED + 68, dev).reshape(
+        SHARD_HOP_BLOCKS, 1, SHARD_HOP_BLOCK)
+    planes = [torch.empty(1, SHARD_BLOCK, SHARD_M, device=dev) for _ in range(2)]
+    hd = torch.empty(SHARD_HOP_BLOCKS, 1, SHARD_HOP_BLOCK // SHARD_HOP, SHARD_HOP_M, 2,
+                     device=dev)
+    steps = {
+        "sharded_sdft_pallas inputs (state, 1x65536)": lambda: (
+            sh._local_state(mesh, st), sh._local(mesh, x, sh.SAMPLE_SPEC)),
+        "sharded_sdft_pallas outputs (state, planar pair)": lambda: (
+            sh._global_state(mesh, st),
+            [sh.host_local_to_global(mesh, sh.SAMPLE_SPEC, p) for p in planes]),
+        "sharded_roundtrip_hopped inputs (state, 8x1x16000)": lambda: (
+            sh._local_state(mesh, sd), sh._local(mesh, xh, (Shard(1), Shard(2), Replicate()))),
+        "sharded_roundtrip_hopped outputs (state, hop spectra, samples)": lambda: (
+            sh._global_state(mesh, sd),
+            sh.host_local_to_global(mesh, (Shard(1), Shard(2), Shard(3)), hd),
+            sh.host_local_to_global(mesh, (Shard(1), Shard(2), Replicate()), xh)),
+    }
+    out = {}
+    for label, fn in steps.items():
+        ts = []
+        for i in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            if i >= 3:
+                ts.append((time.perf_counter() - t0) * 1e3)
+        out[label] = float(np.median(ts))
+        print(f"timing: DTensor steps, {label}: {out[label]:.4f} ms host per call (median of "
+              f"20; range {min(ts):.4f}-{max(ts):.4f}) [{card}]", flush=True)
     return out
 
 
@@ -1980,6 +2198,8 @@ def sharded_timings(jobs: dict, card: str) -> dict:
 CARD_MESHES = ((1, 4, 1), (1, 2, 2), (1, 1, 4))
 CARD_M, CARD_BLOCK, CARD_HOP, CARD_Y_BLOCK = 1000, 64000, 100, 32000
 CARD_FLAGSHIP_M, CARD_FLAGSHIP_BLOCK = 4096, 65536
+#: seconds after which a rank of the multi-card check prints its stacks
+CARD_STACKS_S = 120
 
 
 def _card_rank(rank: int, n: int, init: str):
@@ -1988,10 +2208,12 @@ def _card_rank(rank: int, n: int, init: str):
     unsharded call on its own card and against float64 (the gates of part
     d); rank 0 prints."""
     import datetime
+    import faulthandler
 
     import torch.distributed as dist
 
     import sdft_tpu_torch as T
+    from sdft_tpu_torch import graphs
     from sdft_tpu_torch import parallel as par
     from sdft_tpu_torch.kernels import scan as Q, spectra as S
     from sdft_tpu_torch.ops.analysis import sdft_block
@@ -2001,6 +2223,10 @@ def _card_rank(rank: int, n: int, init: str):
                             timeout=datetime.timedelta(seconds=180))
     dev = torch.device("cuda", rank)
     say = print if rank == 0 else (lambda *a, **k: None)
+    # a rank still running after CARD_STACKS_S prints every thread's stack
+    # once (where a collective that never completes waits)
+    faulthandler.dump_traceback_later(CARD_STACKS_S)
+    t_start = time.perf_counter()
 
     def check(name: str, err: float, limit: float) -> None:
         if rank == 0:
@@ -2020,71 +2246,103 @@ def _card_rank(rank: int, n: int, init: str):
     e_ops = maxerr(sdft_block(plan, T.init_state(plan, device=dev), x)[1], d64) / scale
     say(f"cards: ops float32 (unsharded) vs f64 / scale {e_ops:.3e}", flush=True)
     st1 = T.init_state(plan, channels=1, device=dev)
+    keep = torch.arange(m, device=dev) < m // 4
+    _, yt64 = T.roundtrip(p64, T.init_state(p64, device=dev), x[:M // 4],
+                          transform=lambda z: z * keep)
+    short = x[:4 * (m // 2)]
+    _, yshu = T.roundtrip(plan, T.init_state(plan, device=dev), short)
+    xy = x[:2 * CARD_Y_BLOCK].reshape(2, 1, CARD_Y_BLOCK)
+    _, _, yh64 = T.roundtrip_hopped(p64, T.init_state(p64, device=dev), xy[:, 0], 1,
+                                    refresh_every=1)
+
+    def programs(mesh, axes) -> dict:
+        """Every program on the mesh: {name: output}."""
+        out = {}
+        out["sdft"] = par.sharded_sdft(plan, mesh, st1, x[None])
+        out["roundtrip"] = par.sharded_roundtrip(plan, mesh, st1, x[None])
+        out["isdft"] = par.sharded_isdft(plan, mesh, d64[None, :M // 4].float())
+        out["roundtrip_hopped"] = par.sharded_roundtrip_hopped(
+            plan, mesh, st1, x.reshape(4, 1, M // 4), hop)
+        out["sdft_hopped"] = par.sharded_sdft_hopped(plan, mesh, st1, x[None], hop)
+        # local blocks shorter than 2m: the comb history is all_gathered
+        out["roundtrip short"] = par.sharded_roundtrip(plan, mesh, st1, short[None])
+        out["roundtrip(transform)"] = par.sharded_roundtrip(
+            plan, mesh, st1, x[None, :M // 4], transform=lambda z, bins: z * (bins < m // 4))
+        if axes[2] == 1:
+            for r in range(2):
+                st, outs = st1, []
+                for b in range(2):
+                    st, dd, yy = par.sharded_roundtrip_pallas(plan, mesh, st, xy[b])
+                    outs += [dd, yy]
+                out[f"roundtrip_pallas run {r}"] = (st, *outs)
+        return out
+
     for axes in CARD_MESHES:
         mesh = par.make_mesh(*axes)
         tag = "x".join(map(str, axes))
-        say(f"cards: mesh {tag} over {n} ranks, backend {dist.get_backend()}", flush=True)
+        say(f"cards: mesh {tag} over {n} ranks, backend {dist.get_backend()}, "
+            f"{time.perf_counter() - t_start:.1f} s after the ranks began", flush=True)
+        graphs.clear()
         k1, k2 = S.LAUNCHES, Q.LAUNCHES
-        st, d = par.sharded_sdft(plan, mesh, st1, x[None])
-        d = d.full_tensor()[0]
+        t0 = time.perf_counter()
+        got = programs(mesh, axes)
+        torch.cuda.synchronize()
+        t_graphed = time.perf_counter() - t0
+        launched = (S.LAUNCHES - k1, Q.LAUNCHES - k2)
+        st, d = got["sdft"]
         klass = 3e-6 if axes[2] == 1 else 1.5 * e_ops  # K1, or the scan form
-        check(f"[{tag}] sharded_sdft vs f64 / scale", maxerr(d, d64) / scale, klass)
+        check(f"[{tag}] sharded_sdft vs f64 / scale",
+              maxerr(d.full_tensor()[0], d64) / scale, klass)
         check(f"[{tag}] sharded_sdft accumulator vs f64",
               maxerr(st.accumulator.full_tensor()[0], st64.accumulator), 4e-3)
-        del d
-        _, y = par.sharded_roundtrip(plan, mesh, st1, x[None])
         check(f"[{tag}] sharded_roundtrip (collapsed) vs f64 sdft+isdft (abs)",
-              maxerr(y.full_tensor()[0], y64), 2e-5)
-        q = M // 4
-        yi = par.sharded_isdft(plan, mesh, d64[None, :q].float()).full_tensor()[0]
-        check(f"[{tag}] sharded_isdft vs f64 (abs)", maxerr(yi, y64[:q]), 1e-4)
-        xs = x.reshape(4, 1, M // 4)
-        _, hd, ys = par.sharded_roundtrip_hopped(plan, mesh, st1, xs, hop)
+              maxerr(got["roundtrip"][1].full_tensor()[0], y64), 2e-5)
+        check(f"[{tag}] sharded_isdft vs f64 (abs)",
+              maxerr(got["isdft"].full_tensor()[0], y64[:M // 4]), 1e-4)
+        _, hd, ys = got["roundtrip_hopped"]
         check(f"[{tag}] sharded_roundtrip_hopped(hop={hop}) spectra vs f64 (abs)",
               maxerr(hd.full_tensor().reshape(-1, m, 2), d64[::hop]), 2e-7)
         check(f"[{tag}] sharded_roundtrip_hopped samples vs f64 (abs)",
               maxerr(ys.full_tensor().reshape(-1), y64), 1e-4)
-        _, hs = par.sharded_sdft_hopped(plan, mesh, st1, x[None], hop)
         check(f"[{tag}] sharded_sdft_hopped(hop={hop}) vs f64 (abs)",
-              maxerr(hs.full_tensor()[0], d64[::hop]), 1e-7)
-        # local blocks shorter than 2m: the comb history is all_gathered
-        short = x[:4 * (m // 2)]
-        _, ysh = par.sharded_roundtrip(plan, mesh, st1, short[None])
-        _, yshu = T.roundtrip(plan, T.init_state(plan, device=dev), short)
+              maxerr(got["sdft_hopped"][1].full_tensor()[0], d64[::hop]), 1e-7)
         check(f"[{tag}] sharded_roundtrip, local blocks < 2m, vs roundtrip (abs)",
-              maxerr(ysh.full_tensor()[0], yshu), 2e-5)
-        keep = torch.arange(m, device=dev) < m // 4
-        _, yt = par.sharded_roundtrip(plan, mesh, st1, x[None, :q],
-                                      transform=lambda z, bins: z * (bins < m // 4))
-        _, yt64 = T.roundtrip(p64, T.init_state(p64, device=dev), x[:q],
-                              transform=lambda z: z * keep)
+              maxerr(got["roundtrip short"][1].full_tensor()[0], yshu), 2e-5)
         check(f"[{tag}] sharded_roundtrip(transform) vs f64 (abs)",
-              maxerr(yt.full_tensor()[0], yt64), 1e-4)
+              maxerr(got["roundtrip(transform)"][1].full_tensor()[0], yt64), 1e-4)
         if axes[2] == 1:
-            xy = x[:2 * CARD_Y_BLOCK].reshape(2, 1, CARD_Y_BLOCK)
-            runs = []
-            for _ in range(2):
-                st, outs = st1, []
-                for b in range(2):
-                    st, dd, yy = par.sharded_roundtrip_pallas(plan, mesh, st, xy[b])
-                    outs += [dd.full_tensor(), yy.full_tensor()]
-                runs.append(outs)
-            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            runs = [got[f"roundtrip_pallas run {r}"] for r in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*map(local_leaves, runs))):
                 raise AssertionError(f"[{tag}] sharded_roundtrip_pallas does not repeat itself")
-            dk = torch.cat(runs[0][0::2], dim=1)[0]
-            yk = torch.cat(runs[0][1::2], dim=1)[0]
+            dk = torch.cat([runs[0][1].full_tensor(), runs[0][3].full_tensor()], dim=1)[0]
+            yk = torch.cat([runs[0][2].full_tensor(), runs[0][4].full_tensor()], dim=1)[0]
             check(f"[{tag}] sharded_roundtrip_pallas spectra vs f64 / scale",
                   maxerr(dk, d64[:2 * CARD_Y_BLOCK]) / scale, 1.5e-5)
-            _, _, yh64 = T.roundtrip_hopped(p64, T.init_state(p64, device=dev),
-                                            xy[:, 0], 1, refresh_every=1)
             check(f"[{tag}] sharded_roundtrip_pallas samples vs f64 (abs)",
                   maxerr(yk, yh64.reshape(-1)), 1e-4)
             say(f"  [{tag}] sharded_roundtrip_pallas run twice bit-identical: True", flush=True)
             del runs, dk
-        launched = (S.LAUNCHES - k1, Q.LAUNCHES - k2)
         say(f"  [{tag}] rank 0 launches (K1, K2): {launched}", flush=True)
         if axes[2] == 1 and min(launched) <= 0:
             raise AssertionError(f"[{tag}] K1 or K2 not launched on a bins=1 mesh")
+        # graphed (the default, each rank's body with its NCCL collectives
+        # in its graphs) against eager, bit for bit on every rank
+        names = sorted({e.name for e in graphs.entries() if e.name.startswith("sharded_")})
+        t0 = time.perf_counter()
+        with graphs.disabled():
+            eager = programs(mesh, axes)
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        differ = [k for k in got if not same(local_leaves(got[k]), local_leaves(eager[k]))]
+        flag = torch.tensor([float(bool(differ))], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        say(f"  [{tag}] graphed vs eager, every program, bit for bit on every rank: "
+            f"{flag.item() == 0} (rank 0 differs in {differ}); graphs {names}; first calls "
+            f"{t_graphed:.2f} s graphed (captures included), {t_eager:.2f} s eager, host "
+            f"clock", flush=True)
+        if flag.item() != 0:
+            raise AssertionError(f"[{tag}] a graphed program differs from its eager run")
+        del got, eager, d, hd, ys
     del d64, y64
 
     # the flagship spectra over the four cards: sharded_sdft_pallas on 1x4x1
@@ -2109,13 +2367,18 @@ def _card_rank(rank: int, n: int, init: str):
         torch.cuda.synchronize()
         dist.barrier()
 
+    def sharded_eager():
+        with graphs.disabled():
+            sharded()
+
     def single():
         T.sdft(fplan, T.init_state(fplan, device=dev), xf, "planar")
         torch.cuda.synchronize()
 
     t = {}
-    for who, fn in (("one card", single), (f"{n} cards", sharded), (f"{n} cards", sharded),
-                    ("one card", single)):
+    for who, fn in (("one card", single), (f"{n} cards graphed", sharded),
+                    (f"{n} cards eager", sharded_eager), (f"{n} cards eager", sharded_eager),
+                    (f"{n} cards graphed", sharded), ("one card", single)):
         fn()
         dist.barrier()
         t0 = time.perf_counter()
@@ -2126,7 +2389,12 @@ def _card_rank(rank: int, n: int, init: str):
         say(f"timing: {n * CARD_FLAGSHIP_BLOCK} samples at m={CARD_FLAGSHIP_M}, planar f32, "
             f"{who}: {'/'.join(f'{v:.4f}' for v in ms)} ms per call (host clock, to the last "
             f"card's end), {n * CARD_FLAGSHIP_BLOCK / min(ms) * 1e3:.4e} samples/s", flush=True)
-    dist.destroy_process_group()
+    for who in (f"{n} cards graphed", f"{n} cards eager"):
+        say(f"timing: {who} against one card: {min(t['one card']) / min(t[who]):.3f}x one "
+            f"card's speed (best of turns) [{torch.cuda.get_device_name(dev)}]", flush=True)
+    say(f"cards: the ranks took {time.perf_counter() - t_start:.1f} s", flush=True)
+    par.multihost.shutdown()
+    faulthandler.cancel_dump_traceback_later()
 
 
 def cards_main(n: int) -> int:
@@ -2292,7 +2560,7 @@ def main() -> int:
                 launches[name] += n
             errs.update(shard_errs)
             done("part d")
-            shard_times = sharded_timings(jobs, card)
+            shard_times = sharded_timings(T, jobs, card, dev, mesh)
             done("part d's timings")
             # part e begins here, in part d's group, and goes on after
             # phase 5: once another process had used the card (the
@@ -2304,7 +2572,7 @@ def main() -> int:
             part_e = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
             t_tools = time.perf_counter() - t_tools
         finally:
-            dist.destroy_process_group()
+            par.multihost.shutdown()
 
     vs_plain = kernels_vs_plain(T, S, Q, dev)
     vs_plain.update({f"kparts_{v}": e for v, e in probes_vs_plain(P, dev).items()})

@@ -215,7 +215,7 @@ def _main_mesh(plan: Plan, axes: tuple, device: torch.device, x: np.ndarray, sr:
             _write(wavfile, dftfile, ys, hop_dfts, sr, size, hopsize, elapsed)
     finally:
         if created:
-            dist.destroy_process_group()
+            multihost.shutdown()
     return 0
 
 

@@ -34,13 +34,14 @@ and ``replay`` replays it once and returns them.  A caller of either reads
 the static outputs on the current stream before the next replay of any
 graph is enqueued, in one of two ways:
 
-  * it copies them out (the driver chain at hop > 1 copies each block's
-    outputs into its stack; a state fed to the next replay is copied into
-    the static inputs);
+  * it copies them out (the driver chains at hop > 1, single-device and
+    sharded, copy each block's outputs into their stacks; a state fed to
+    the next replay is copied into the static inputs);
   * a hand-written kernel reads them straight after the replay: K1 after
     the prologue graph of ``sdft``/``sdft_power`` (``kernels.spectra.
-    prologue``), K2 after the hop=1 chain's prologue graph, each writing
-    into memory the caller owns.  The kernel is enqueued on the replay's
+    prologue``), K2 after the hop=1 chain's prologue graph, K1 or K2 after
+    the sharded kernel programs' graph, each writing into memory the
+    caller owns.  The kernel is enqueued on the replay's
     stream before anything else is, so a later replay (of this graph, or
     of another one that captured its scratch into the same memory) runs
     after the kernel has read.
@@ -97,16 +98,16 @@ class CudaBackend:
                     fn(*args)
             torch.cuda.current_stream().wait_stream(side)
 
-    def capture(self, fn, args, device: torch.device):
+    def capture(self, fn, args, device: torch.device, mode: str = "global"):
         """(graph, outputs): ``fn`` captured on a side stream into the
-        device's pool."""
+        device's pool, in the capture error mode ``mode``."""
         with torch.cuda.device(device):
             if device not in self._pools:
                 self._pools[device] = torch.cuda.graph_pool_handle()
             pool = self._pools[device]
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, pool=pool):
+                with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
                     out = fn(*args)
             except Exception:
                 # a failed capture leaves the allocator recording into the
@@ -186,7 +187,7 @@ def _launch_counters():
 class Graph:
     """One captured function with its static inputs and outputs."""
 
-    def __init__(self, name: str, key: tuple, fn, args):
+    def __init__(self, name: str, key: tuple, fn, args, mode: str = "global"):
         global _HELD
         self.name, self.key = name, key
         inputs = leaves(args)
@@ -202,7 +203,7 @@ class Graph:
             reserved = BACKEND.reserved(device)
             _HELD = []
             try:
-                self._graph, self.outputs = BACKEND.capture(fn, static, device)
+                self._graph, self.outputs = BACKEND.capture(fn, static, device, mode)
             finally:
                 self._held, _HELD = _HELD, None
                 captured = [c.LAUNCHES - n for c, n in zip(counters, before)]
@@ -260,12 +261,15 @@ def _key(name: str, static: tuple, inputs: list) -> tuple:
     return key
 
 
-def get(name: str, static: tuple, fn, *args) -> Graph:
-    """The graph of ``fn`` for this key, captured on its first request."""
+def get(name: str, static: tuple, fn, *args, mode: str = "global") -> Graph:
+    """The graph of ``fn`` for this key, captured on its first request in
+    the capture error mode ``mode`` (``torch.cuda.graph``'s
+    ``capture_error_mode``: "thread_local" lets other threads, such as
+    NCCL's watchdog, make calls a global capture forbids)."""
     key = _key(name, static, leaves(args))
     graph = _GRAPHS.get(key)
     if graph is None:
-        graph = _GRAPHS[key] = Graph(name, key, fn, args)
+        graph = _GRAPHS[key] = Graph(name, key, fn, args, mode)
         while len(_GRAPHS) > MAX_GRAPHS:
             _GRAPHS.popitem(last=False)
     else:
@@ -278,15 +282,15 @@ def clone(tree):
     return _rebuild(tree, (t.clone() for t in leaves(tree)))
 
 
-def replay(name: str, static: tuple, fn, *args):
+def replay(name: str, static: tuple, fn, *args, mode: str = "global"):
     """The static outputs of ``fn``'s graph replayed on ``args``
     (overwritten by the next replay, see above)."""
-    return get(name, static, fn, *args)(*args)
+    return get(name, static, fn, *args, mode=mode)(*args)
 
 
-def run(name: str, static: tuple, fn, *args):
+def run(name: str, static: tuple, fn, *args, mode: str = "global"):
     """``fn(*args)`` by replaying its graph; fresh outputs."""
-    return clone(replay(name, static, fn, *args))
+    return clone(replay(name, static, fn, *args, mode=mode))
 
 
 class Entry(NamedTuple):

@@ -13,6 +13,7 @@ Typical driver, one process per card (``torchrun --nproc-per-node N``):
     multihost.initialize()                  # torchrun's environment
     mesh = make_mesh(time=N // 2, bins=2)
     state, dfts = sharded_sdft(plan, mesh, state, samples)
+    multihost.shutdown()                    # drops the graphs, then the group
 
 Sharded values are ``DTensor``s with the placements of ``STATE_SPECS``,
 ``SAMPLE_SPEC`` and ``DFT_SPEC``: ``host_local_to_global`` assembles one
@@ -72,6 +73,21 @@ def initialize(coordinator_address: str | None = None,
         dist.init_process_group(backend)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), world_size=1, rank=0)
+
+
+def shutdown() -> None:
+    """Destroy the default process group, after dropping every cached graph
+    (``graphs.clear``): a graph that captured a rank's NCCL collectives
+    (``parallel.sharded`` on a mesh of more than one rank) holds their
+    communicator, and NCCL's destroy waits until no graph holds it, so
+    ``torch.distributed.destroy_process_group`` alone would never return."""
+    import gc
+
+    from .. import graphs
+
+    graphs.clear()
+    gc.collect()
+    dist.destroy_process_group()
 
 
 def global_mesh(channel: int = 1, time: int = 1, bins: int = 1,

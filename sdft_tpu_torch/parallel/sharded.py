@@ -29,8 +29,16 @@ halo.  Local time blocks M/time >= 2m keep the comb exchange to one
 neighbour send/recv; shorter blocks all_gather the sample blocks
 (``_comb_history``).
 
-The JAX package runs each program as one jit-compiled shard_map; here the
-bodies run eagerly, one rank per process.
+The JAX package runs each program as one jit-compiled shard_map.  Here
+each rank runs in a process of its own, and on the card each program's
+per-rank body, its collectives included, replays as a CUDA graph
+(``graphs``; one graph per block for the driver chain), keyed on the plan,
+the mesh shape, this rank's coordinates, the global block length and the
+program's static arguments.  K1 and K2 launch straight after the replay of
+the kernel programs' graph, into outputs the caller owns.  The DTensor
+steps around the body (taking each rank's shard, assembling the outputs)
+stay outside every graph.  On the CPU and inside ``graphs.disabled()`` the
+bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -42,10 +50,12 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .. import graphs
 from ..config import fp32_matmul
 from ..cplx import pack, unpack
-from ..kernels.scan import forward_and_y
-from ..kernels.spectra import _prefix_tiles, forward_block, kernel_supported
+from ..kernels.scan import _scan
+from ..kernels.spectra import (_check_dtype, _prefix_tiles, _spectra, kernel_supported,
+                               spectra_prologue)
 from ..ops.convolve import convolve_padded
 from ..ops.lti import (_fused_driver_consts, _hop_aux,
                        _hop_consts_device, _lti_consts_device, _phase_rows,
@@ -56,7 +66,7 @@ from ..plan import Plan
 from ..state import State
 from ..windows import WINDOW_HALO
 from .mesh import AXES
-from .multihost import global_array, host_local_to_global
+from .multihost import global_array, host_local_to_global, mesh_device
 
 # Placements (one per mesh axis: channel, time, bins) of the batched State:
 # the accumulator shards over bins, offset and delayline replicate over
@@ -75,14 +85,21 @@ DFT_SPEC = (Shard(0), Shard(1), Shard(2))
 def _local(mesh: DeviceMesh, x, placements) -> torch.Tensor:
     """This rank's shard of ``x``: a DTensor's local tensor (redistributed
     to ``placements`` first if it has others), or the shard
-    ``multihost.global_array`` cuts from a value every rank holds in full."""
+    ``multihost.global_array`` cuts from a value every rank holds in full,
+    cut here by slicing (the layout contracts make every shard even)
+    without building the DTensor."""
     if isinstance(x, DTensor):
         if x.device_mesh != mesh:
             raise ValueError("DTensor input lives on another mesh")
         if tuple(x.placements) != tuple(placements):
             x = x.redistribute(mesh, placements)
         return x.to_local()
-    return global_array(mesh, placements, x).to_local().contiguous()
+    t = torch.as_tensor(x, device=mesh_device(mesh))
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = t.shape[p.dim] // mesh.size(i)
+            t = t.narrow(p.dim, mesh.get_local_rank(i) * n, n)
+    return t.contiguous()
 
 
 def _local_state(mesh: DeviceMesh, state: State) -> State:
@@ -106,6 +123,7 @@ def state_sharding(mesh: DeviceMesh, state: State) -> State:
 class _Axes(NamedTuple):
     """This rank's coordinates and the axis groups it talks on."""
 
+    nc: int                    # channel shards
     d: int                     # time coordinate
     nt: int                    # time shards
     time: dist.ProcessGroup
@@ -113,11 +131,39 @@ class _Axes(NamedTuple):
     nb: int                    # bin shards
     bins: dist.ProcessGroup
 
+    def key(self) -> tuple:
+        """What a graph of this rank's body depends on besides the plan and
+        the program's arguments: the mesh shape, this rank's time and bins
+        coordinates, and the identity of each axis group whose collectives
+        it captures (those of more than one rank).  The graph's function
+        holds these groups, so no other group takes their ``id`` while the
+        graph is cached: a group made later, even over the same ranks, gets
+        a graph of its own."""
+        groups = tuple(id(g) if n > 1 else None
+                       for g, n in ((self.time, self.nt), (self.bins, self.nb)))
+        return (self.nc, self.nt, self.nb), self.d, self.b, groups
+
 
 def _axes(mesh: DeviceMesh) -> _Axes:
     t, b = AXES.index("time"), AXES.index("bins")
-    return _Axes(mesh.get_local_rank(t), mesh.size(t), mesh.get_group(t),
+    return _Axes(mesh.size(AXES.index("channel")),
+                 mesh.get_local_rank(t), mesh.size(t), mesh.get_group(t),
                  mesh.get_local_rank(b), mesh.size(b), mesh.get_group(b))
+
+
+#: capture error mode of the per-rank graphs: a rank's NCCL watchdog
+#: thread queries the events of earlier collectives while the rank
+#: captures, which a global capture forbids
+CAPTURE_MODE = "thread_local"
+
+
+def _graphed(name: str, ax: _Axes, static: tuple, fn, *args):
+    """``fn(*args)``, this rank's body: on the card a replay of its graph
+    (``graphs.run``, fresh outputs), keyed on ``ax.key()`` and ``static``;
+    eagerly on the CPU and inside ``graphs.disabled()``."""
+    if graphs.active(args[-1]):
+        return graphs.run(name, (*ax.key(), *static), fn, *args, mode=CAPTURE_MODE)
+    return fn(*args)
 
 
 def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -211,9 +257,15 @@ def _bin_halo_exchange(aux: torch.Tensor, halo: int, ax: _Axes) -> torch.Tensor:
 
 # -- per-shard bodies -------------------------------------------------------------
 
-def _bins(plan: Plan, ax: _Axes, device) -> torch.Tensor:
+def _bin_range(plan: Plan, ax: _Axes) -> tuple:
+    """(first bin, bins) of this rank's shard, on the host."""
     mb = plan.dftsize // ax.nb
-    return ax.b * mb + torch.arange(mb, device=device)
+    return ax.b * mb, mb
+
+
+def _bins(plan: Plan, ax: _Axes, device) -> torch.Tensor:
+    b0, mb = _bin_range(plan, ax)
+    return b0 + torch.arange(mb, device=device)
 
 
 def _window(plan: Plan, aux: torch.Tensor, bins: torch.Tensor, ax: _Axes) -> torch.Tensor:
@@ -286,10 +338,9 @@ def _inverse_local(plan: Plan, dfts: torch.Tensor, ax: _Axes) -> torch.Tensor:
     return (y * plan.synthesis_weight).to(plan.precision.td_dtype)
 
 
-def _bin_cols(t: torch.Tensor, bins: torch.Tensor, m: int) -> torch.Tensor:
-    """The local bins' columns of an (R, ..., m, 2)-interleaved table
+def _bin_cols(t: torch.Tensor, b0: int, mb: int, m: int) -> torch.Tensor:
+    """Columns [b0, b0 + mb) of an (R, ..., m, 2)-interleaved table
     flattened to (R, X*2m): (R, X*2mb)."""
-    b0, mb = int(bins[0]), bins.numel()
     R = t.shape[0]
     return t.view(R, -1, m, 2)[:, :, b0:b0 + mb].reshape(R, -1)
 
@@ -338,11 +389,11 @@ def _synthesize_local(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,
     return y.reshape(C, nt * K)[:, :L].to(plan.precision.td_dtype)
 
 
-def _local_stepped(stepped, bins: torch.Tensor, m: int):
+def _local_stepped(stepped, b0: int, mb: int, m: int):
     if stepped is None:
         return None
     sf, dr = stepped
-    return _bin_cols(sf, bins, m), dr[:, int(bins[0]):int(bins[0]) + bins.numel()]
+    return _bin_cols(sf, b0, mb, m), dr[:, b0:b0 + mb]
 
 
 def _roundtrip_local_lti(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes,
@@ -357,8 +408,8 @@ def _roundtrip_local_lti(plan: Plan, state: State, samples: torch.Tensor, ax: _A
     dev = samples.device
     bins = _bins(plan, ax, dev)
     fine, GLT, PQ = _lti_consts_device(plan, default_k_tile(L, m), plan.precision.fd_dtype, dev)
-    b0, mb = ax.b * bins.numel(), bins.numel()
-    dt, c0, new_state = _carry_local(plan, state, samples, _bin_cols(fine, bins, m), bins,
+    b0, mb = _bin_range(plan, ax)
+    dt, c0, new_state = _carry_local(plan, state, samples, _bin_cols(fine, b0, mb, m), bins,
                                      ax, m_total)
     y = _synthesize_local(plan, dt, c0, GLT, PQ[2 * b0:2 * (b0 + mb)], L, ax)
     return new_state, y
@@ -376,8 +427,9 @@ def _hopped_local(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes, ho
     L = samples.shape[-1]
     dev = samples.device
     bins = _bins(plan, ax, dev)
-    fine = _bin_cols(_hop_consts_device(plan, hop * sub, fd, dev), bins, m)
-    stepped = (_local_stepped(_stepped_consts_device(plan, hop, sub, fd, dev), bins, m)
+    b0, mb = _bin_range(plan, ax)
+    fine = _bin_cols(_hop_consts_device(plan, hop * sub, fd, dev), b0, mb, m)
+    stepped = (_local_stepped(_stepped_consts_device(plan, hop, sub, fd, dev), b0, mb, m)
                if sub > 1 else None)
     dt, c0, new_state = _carry_local(plan, state, samples, fine, bins, ax, m_total)
     aux = _hop_aux(plan, dt, c0, stepped, hop, L, bins)
@@ -396,12 +448,12 @@ def _driver_block_local(plan: Plan, state: State, samples: torch.Tensor, consts,
     m = plan.dftsize
     L = samples.shape[-1]
     bins = _bins(plan, ax, samples.device)
-    b0, mb = int(bins[0]), bins.numel()
+    b0, mb = _bin_range(plan, ax)
     (fine, GLT, PQ), stepped = consts
-    dt, c0, st = _carry_local(plan, state, samples, _bin_cols(fine, bins, m), bins, ax,
+    dt, c0, st = _carry_local(plan, state, samples, _bin_cols(fine, b0, mb, m), bins, ax,
                               m_total)
     y = _synthesize_local(plan, dt, c0, GLT, PQ[2 * b0:2 * (b0 + mb)], L, ax)
-    aux = _hop_aux(plan, dt, c0, _local_stepped(stepped, bins, m), hop, L, bins)
+    aux = _hop_aux(plan, dt, c0, _local_stepped(stepped, b0, mb, m), hop, L, bins)
     hd = pack(_window(plan, aux, bins, ax))
     if refresh:
         C = st.offset.shape[0]
@@ -411,20 +463,17 @@ def _driver_block_local(plan: Plan, state: State, samples: torch.Tensor, consts,
     return st, hd, y
 
 
-def _forward_local_pallas(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes,
-                          m_total: int, layout: str, spectra_dtype: str | None,
-                          emit_y: bool):
-    """Per-rank body of the kernel programs.
+def _kernel_prologue_local(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes,
+                           m_total: int):
+    """Per-rank prologue of the kernel programs: the kernels' prologue
+    (``kernels.spectra.spectra_prologue``) of the local (C, L) block, with
+    the global end state in place of the prologue's own.
 
     Each time shard derives its block-start accumulator from the 2m-sample
     comb history it already receives for the delta stage (the refresh
     identity: the carry is a function of the last 2m samples and the
     offset alone), so the inter-block carry needs no prefix collective:
-    the comb exchange is the program's only cross-rank traffic.  Each rank
-    then runs K1 (``kernels.spectra.forward_block``) or, with ``emit_y``,
-    K2 (``kernels.scan.forward_and_y``) once on its local (C, L) block, all
-    its channels in one prologue and one launch, and writes only its local
-    (C, L, m) spectra."""
+    the comb exchange is the program's only cross-rank traffic."""
     fd = plan.precision.fd_dtype
     n2 = 2 * plan.dftsize
     C, L = samples.shape
@@ -433,16 +482,39 @@ def _forward_local_pallas(plan: Plan, state: State, samples: torch.Tensor, ax: _
     hist, new_delayline = _comb_history(state.delayline.to(td), x, n2, ax)
     zeros = torch.zeros_like(state.accumulator)
     off = torch.remainder(state.offset + ax.d * L, n2).to(state.offset.dtype)
-    st0 = _refresh_fused(plan, State(off, hist, zeros), fd)
-    if emit_y:
-        _, dfts, ys = forward_and_y(plan, st0, x)
-    else:
-        _, dfts = forward_block(plan, st0, x, layout, spectra_dtype)
+    pro = spectra_prologue(plan, _refresh_fused(plan, State(off, hist, zeros), fd), x)
     # the global end state (the same on every rank): the stream's tail and
     # the end accumulator from the same refresh identity
     end = _refresh_fused(plan, State(_next_offset(plan, state, m_total), new_delayline,
                                      zeros), fd)
-    return (end, dfts, ys) if emit_y else (end, dfts)
+    return pro._replace(state=end)
+
+
+def _forward_local_pallas(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes,
+                          m_total: int, layout: str, spectra_dtype: str | None,
+                          emit_y: bool):
+    """Per-rank body of the kernel programs: the prologue
+    (``_kernel_prologue_local``; on the card a replay of its graph), then
+    K1 or, with ``emit_y``, K2 once on the local (C, L) block, all its
+    channels in one launch straight after the replay, reading the graph's
+    static carries and writing only the local (C, L, m) spectra into fresh
+    outputs.  The kernels stay out of the graph, so its key holds neither
+    the layout nor ``emit_y``."""
+    dtype = _check_dtype(spectra_dtype)
+
+    def body(st, x):
+        return _kernel_prologue_local(plan, st, x, ax, m_total)
+
+    if graphs.active(samples):
+        pro = graphs.replay("sharded_kernel_prologue", (*ax.key(), plan, m_total), body,
+                            state, samples, mode=CAPTURE_MODE)
+        pro = pro._replace(state=graphs.clone(pro.state))
+    else:
+        pro = body(state, samples)
+    if emit_y:
+        dfts, ys = _scan(plan, pro, "packed")
+        return pro.state, dfts, ys.to(plan.precision.td_dtype)
+    return pro.state, _spectra(plan, pro, layout, dtype)
 
 
 # -- the programs ------------------------------------------------------------------
@@ -494,10 +566,19 @@ def sharded_sdft(plan: Plan, mesh: DeviceMesh, state: State, samples,
                       and kernel_supported(plan, M))
     if use_pallas:
         return sharded_sdft_pallas(plan, mesh, state, samples)
-    ax = _axes(mesh)
-    st, dfts = _forward_local(plan, _local_state(mesh, state),
-                              _local(mesh, samples, SAMPLE_SPEC), ax, M)
+    st, dfts = _forward(plan, _axes(mesh), _local_state(mesh, state),
+                        _local(mesh, samples, SAMPLE_SPEC), M)
     return _global_state(mesh, st), host_local_to_global(mesh, DFT_SPEC, dfts)
+
+
+def _forward(plan: Plan, ax: _Axes, state: State, x: torch.Tensor, m_total: int):
+    return _graphed("sharded_forward", ax, (plan, m_total),
+                    lambda st, xx: _forward_local(plan, st, xx, ax, m_total), state, x)
+
+
+def _inverse(plan: Plan, ax: _Axes, dfts: torch.Tensor) -> torch.Tensor:
+    return _graphed("sharded_inverse", ax, (plan,),
+                    lambda d: _inverse_local(plan, d, ax), dfts)
 
 
 def sharded_isdft(plan: Plan, mesh: DeviceMesh, dfts):
@@ -505,7 +586,7 @@ def sharded_isdft(plan: Plan, mesh: DeviceMesh, dfts):
     samples, placed ``SAMPLE_SPEC``."""
     C, M, _, _ = _samples_shape(dfts, 4)
     _check_layout(plan, mesh, C, M)
-    y = _inverse_local(plan, _local(mesh, dfts, DFT_SPEC), _axes(mesh))
+    y = _inverse(plan, _axes(mesh), _local(mesh, dfts, DFT_SPEC))
     return host_local_to_global(mesh, SAMPLE_SPEC, y)
 
 
@@ -534,17 +615,25 @@ def sharded_roundtrip(plan: Plan, mesh: DeviceMesh, state: State, samples,
     st = _local_state(mesh, state)
     x = _local(mesh, samples, SAMPLE_SPEC)
     if transform is None and collapsed:
-        st, y = _roundtrip_local_lti(plan, st, x, ax, M)
+        st, y = _graphed("sharded_roundtrip_lti", ax, (plan, M),
+                         lambda s, xx: _roundtrip_local_lti(plan, s, xx, ax, M), st, x)
+    elif transform is None:
+        # the scan form's forward and inverse, one graph
+        def body(s, xx):
+            s, d = _forward_local(plan, s, xx, ax, M)
+            return s, _inverse_local(plan, d, ax)
+
+        st, y = _graphed("sharded_roundtrip_scan", ax, (plan, M), body, st, x)
     else:
-        st, dfts = _forward_local(plan, st, x, ax, M)
-        if transform is not None:
-            z = unpack(dfts)
-            z2 = transform(z, _bins(plan, ax, z.device))
-            if tuple(z2.shape) != tuple(z.shape):
-                raise ValueError(f"transform must preserve the local spectra shape "
-                                 f"{tuple(z.shape)}, returned {tuple(z2.shape)}")
-            dfts = pack(z2)
-        y = _inverse_local(plan, dfts, ax)
+        # the user's callable runs between a graphed forward and a graphed
+        # inverse, outside any graph (as api.roundtrip's transform does)
+        st, dfts = _forward(plan, ax, st, x, M)
+        z = unpack(dfts)
+        z2 = transform(z, _bins(plan, ax, z.device))
+        if tuple(z2.shape) != tuple(z.shape):
+            raise ValueError(f"transform must preserve the local spectra shape "
+                             f"{tuple(z.shape)}, returned {tuple(z2.shape)}")
+        y = _inverse(plan, ax, pack(z2))
     return _global_state(mesh, st), host_local_to_global(mesh, SAMPLE_SPEC, y)
 
 
@@ -565,8 +654,10 @@ def sharded_sdft_hopped(plan: Plan, mesh: DeviceMesh, state: State, samples, hop
     sub = driver_sub_factor(hop)
     if L % (hop * sub):
         sub = 1                      # keep any hop-multiple block legal
-    st, dfts = _hopped_local(plan, _local_state(mesh, state), _local(mesh, samples, SAMPLE_SPEC),
-                             _axes(mesh), hop, sub, M)
+    ax = _axes(mesh)
+    st, dfts = _graphed("sharded_hopped", ax, (plan, hop, sub, M),
+                        lambda s, x: _hopped_local(plan, s, x, ax, hop, sub, M),
+                        _local_state(mesh, state), _local(mesh, samples, SAMPLE_SPEC))
     return _global_state(mesh, st), host_local_to_global(mesh, DFT_SPEC, dfts)
 
 
@@ -576,7 +667,10 @@ def sharded_roundtrip_hopped(plan: Plan, mesh: DeviceMesh, state: State, blocks,
     hop spectra and synthesized samples from one fused body per rank
     (``_driver_block_local``), the blocks one after another (the
     counterpart of ``api.roundtrip_hopped``, and the CLI's ``--mesh``
-    path).
+    path).  On the card one block's body is captured once per chain and
+    replayed per block (the counterpart of the JAX program's ``lax.scan``
+    body), each block's outputs copied into stacks allocated before the
+    loop.
 
     Args:
       plan: the plan.
@@ -606,14 +700,27 @@ def sharded_roundtrip_hopped(plan: Plan, mesh: DeviceMesh, state: State, blocks,
     xs = _local(mesh, blocks, (Shard(1), Shard(2), Replicate()))
     st = _local_state(mesh, state)
     consts = _fused_driver_consts(plan, hop, sub, xs.device)
-    hds, ys = [], []
-    for x in xs:
-        st, hd, y = _driver_block_local(plan, st, x, consts, ax, hop, B, refresh_every == 1)
-        hds.append(hd)
-        ys.append(y)
-    return (_global_state(mesh, st),
-            host_local_to_global(mesh, (Shard(1), Shard(2), Shard(3)), torch.stack(hds)),
-            host_local_to_global(mesh, (Shard(1), Shard(2), Replicate()), torch.stack(ys)))
+    refresh = refresh_every == 1
+    _, mb = _bin_range(plan, ax)
+    hds = torch.empty((nblk, xs.shape[1], L // hop, mb, 2), dtype=plan.precision.fd_dtype,
+                      device=xs.device)
+    ys = torch.empty(xs.shape, dtype=plan.precision.td_dtype, device=xs.device)
+
+    def block(s, x):
+        return _driver_block_local(plan, s, x, consts, ax, hop, B, refresh)
+
+    graphed = graphs.active(xs)
+    if graphed:
+        # each replay's outputs are copied out before the next replay
+        block = graphs.get("sharded_driver_block", (*ax.key(), plan, hop, sub, B, refresh),
+                           block, st, xs[0], mode=CAPTURE_MODE)
+    for b in range(nblk):
+        st, hd, y = block(st, xs[b])
+        hds[b] = hd
+        ys[b] = y
+    return (_global_state(mesh, graphs.clone(st) if graphed else st),
+            host_local_to_global(mesh, (Shard(1), Shard(2), Shard(3)), hds),
+            host_local_to_global(mesh, (Shard(1), Shard(2), Replicate()), ys))
 
 
 def _check_kernel_program(name: str, plan: Plan, mesh: DeviceMesh, C: int, M: int,

@@ -504,7 +504,7 @@ def bench_mesh_cli(argv, mesh_spec: str) -> int:
         }))
     finally:
         if created:
-            dist.destroy_process_group()
+            multihost.shutdown()
     return 0
 
 

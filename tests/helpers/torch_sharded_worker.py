@@ -2,6 +2,7 @@
 tests/test_torch_sharded.py and tests/test_torch_cli.py.
 
     python tests/helpers/torch_sharded_worker.py CxTxB inputs.npz results.npz
+    python tests/helpers/torch_sharded_worker.py CxTxB --graphs results.npz
     python tests/helpers/torch_sharded_worker.py CxTxB --cli <CLI arguments>
 
 spawns C*T*B ranks (``torch.multiprocessing.spawn``).  Each joins one Gloo
@@ -10,9 +11,15 @@ so concurrent runs cannot collide) and makes the ('channel', 'time',
 'bins') mesh on the CPU.  The first form runs every case of ``cases`` on
 the inputs and rank 0 writes each output, gathered whole, to results.npz
 under "<case>/<name>"; a case that raises on purpose stores the message.
-The second runs the port's CLI on every rank (``--mesh CxTxB --device
-cpu`` among its arguments).  This module imports numpy, torch and
-sdft_tpu_torch only: the test imports it for the inputs and the case list.
+The second runs each case of ``GRAPH_CASES`` twice on every rank, graphed
+through the CPU stand-in capture backend (tests/helpers/graph_stub.py:
+each replay runs the rank's body, its Gloo collectives included, again)
+and eagerly (``graphs.disabled()``), on inputs it makes itself, and rank 0
+writes per case whether any output differed on any rank, the graphs
+captured and their capture modes.  The third runs the port's CLI on every
+rank (``--mesh CxTxB --device cpu`` among its arguments).  This module
+imports numpy, torch and sdft_tpu_torch only: the test imports it for the
+inputs and the case list.
 """
 
 from __future__ import annotations
@@ -280,6 +287,19 @@ def cases(axes) -> list:
     return [n for n, (where, _) in CASES.items() if where is None or where(axes)]
 
 
+#: the stand-in graph mode's meshes (one bins-sharded, one time-sharded) and
+#: cases: every public program, the scan and transform round trips, and
+#: local blocks shorter than 2m (the comb history's all_gather)
+GRAPH_MESHES = [(1, 2, 4), (2, 4, 1)]
+GRAPH_CASES = ("sdft_blackman", "roundtrip_hann", "roundtrip_scan", "isdft_lat05",
+               "hopped_h4", "driver_refresh", "transform", "short_lti", "kernel_sdft",
+               "kernel_roundtrip")
+
+
+def graph_cases(axes) -> list:
+    return [n for n in cases(axes) if n in GRAPH_CASES]
+
+
 # -- the ranks --------------------------------------------------------------------
 
 def _numpy(v):
@@ -313,6 +333,12 @@ def _join(rank: int, world: int, init: str):
     return dist
 
 
+def _outputs(T, par, mesh, axes, inp, name) -> dict:
+    return {f"{key}{suffix}": a
+            for key, v in CASES[name][1](T, par, mesh, axes, inp).items()
+            for suffix, a in _numpy(v).items()}
+
+
 def _cases_rank(rank: int, axes, init: str, inputs: str, results: str):
     import torch
 
@@ -326,9 +352,38 @@ def _cases_rank(rank: int, axes, init: str, inputs: str, results: str):
         inp = {k: f[k] for k in f.files}
     out = {}
     for name in cases(axes):
-        for key, v in CASES[name][1](T, par, mesh, axes, inp).items():
-            for suffix, a in _numpy(v).items():
-                out[f"{name}/{key}{suffix}"] = a
+        out.update({f"{name}/{k}": a for k, a in _outputs(T, par, mesh, axes, inp, name).items()})
+    if rank == 0:
+        np.savez(results, **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _graphs_rank(rank: int, axes, init: str, results: str):
+    import graph_stub
+    import torch
+
+    import sdft_tpu_torch as T
+    from sdft_tpu_torch import graphs
+    from sdft_tpu_torch import parallel as par
+
+    torch.set_num_threads(1)
+    dist = _join(rank, int(np.prod(axes)), init)
+    mesh = par.make_mesh(*axes, device_type="cpu")
+    inp = make_inputs(axes)
+    out = {}
+    for name in graph_cases(axes):
+        with graph_stub.installed() as stub:
+            graphed = _outputs(T, par, mesh, axes, inp, name)
+            names = sorted({e.name for e in graphs.entries()})
+        with graphs.disabled():
+            eager = _outputs(T, par, mesh, axes, inp, name)
+        differ = torch.tensor([float(graphed.keys() != eager.keys() or any(
+            not np.array_equal(graphed[k], eager[k]) for k in graphed))])
+        dist.all_reduce(differ, op=dist.ReduceOp.MAX)
+        out[f"{name}/differ"] = differ.numpy()
+        out[f"{name}/graphs"] = np.array(names)
+        out[f"{name}/modes"] = np.array(sorted(set(stub.modes)))
     if rank == 0:
         np.savez(results, **out)
     dist.barrier()
@@ -357,6 +412,8 @@ def main(argv) -> int:
         init = f"file://{os.path.join(tmp, 'group')}"
         if argv[1] == "--cli":
             mp.spawn(_cli_rank, args=(axes, init, argv[2:]), nprocs=int(np.prod(axes)))
+        elif argv[1] == "--graphs":
+            mp.spawn(_graphs_rank, args=(axes, init, argv[2]), nprocs=int(np.prod(axes)))
         else:
             mp.spawn(_cases_rank, args=(axes, init, argv[1], argv[2]), nprocs=int(np.prod(axes)))
     return 0

@@ -2,9 +2,10 @@
 switches, what a replay returns, and every graphed path against its JAX
 counterpart.
 
-On the CPU a stand-in capture backend (``StubBackend``, put in
-``graphs.BACKEND``) "captures" by running the function once and "replays"
-by running it again into the same static outputs, so the port's graph
+On the CPU a stand-in capture backend (``StubBackend`` of
+tests/helpers/graph_stub.py, put in ``graphs.BACKEND``) "captures" by
+running the function once and "replays" by running it again into the same
+static outputs, so the port's graph
 plumbing (static inputs, the chain's state fed back, the stacked outputs,
 the refresh cadence) runs here on CPU tensors.  With the real backend CPU
 tensors never reach the cache.  Gates as the existing parity tests:
@@ -16,6 +17,8 @@ real graphs against the eager run on the card.
 """
 
 import contextlib
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -30,6 +33,13 @@ from sdft_tpu_torch import graphs
 from sdft_tpu_torch.kernels import scan, spectra
 from sdft_tpu_torch.ops import lti
 from sdft_tpu_torch.state import stack_states
+
+_spec = importlib.util.spec_from_file_location(
+    "graph_stub", os.path.join(os.path.dirname(os.path.abspath(__file__)), "helpers",
+                               "graph_stub.py"))
+_stub = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_stub)
+StubBackend = _stub.StubBackend
 
 F64 = J.Precision("float64", "float64")
 
@@ -46,43 +56,6 @@ def _rel(got, want):
     got, want = _np(got), _np(want)
     assert got.shape == want.shape, (got.shape, want.shape)
     return np.abs(got - want).max() / max(np.abs(want).max(), 1e-300)
-
-
-class _StubGraph:
-    def __init__(self, fn, args, out):
-        self.fn, self.args, self.out = fn, args, out
-
-    def replay(self):
-        saved = spectra.LAUNCHES, scan.LAUNCHES
-        new = self.fn(*self.args)
-        spectra.LAUNCHES, scan.LAUNCHES = saved     # a replay runs no Python
-        for s, t in zip(graphs.leaves(self.out), graphs.leaves(new)):
-            s.copy_(t)
-
-
-class StubBackend:
-    """Captures on the CPU: one eager call fixes the static outputs, each
-    replay recomputes them in place."""
-
-    device_type = "cpu"
-
-    def __init__(self):
-        self.captures = 0
-
-    def warmup(self, fn, args, device):
-        for _ in range(graphs.WARMUP_CALLS):
-            fn(*args)
-
-    def capture(self, fn, args, device):
-        self.captures += 1
-        out = fn(*args)
-        return _StubGraph(fn, args, out), out
-
-    def reserved(self, device):
-        return 0
-
-    def clear(self):
-        pass
 
 
 @pytest.fixture
