@@ -30,7 +30,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                8000 samples, and over 2 blocks of 2 channels x 4000 (one
                K2 launch per block).  K1 and K2 must have been launched;
      b. driver ``roundtrip`` without a transform (the collapsed LTI form)
-               at the flagship size; ``roundtrip_hopped`` at m = 1000 with
+               at the flagship size; with ``mxu="split4"`` at m = 4096 on
+               1 x 65536 and 8 x 32768 (within 5e-4 of float64, unequal
+               to the exact FP32 y, every GEMM of its trace a bf16
+               tensor-core GEMM), ``_dot4`` on the card against its plain
+               version on the 8 x 32768 block's totals product, and the
+               split4 driver at m = 1000, hop = 100 (hop spectra and state
+               bit for bit the exact plan's, its split synthesis on bf16
+               GEMMs beside the exact totals); ``roundtrip_hopped`` at
+               m = 1000 with
                hop = 100 over 4 blocks of 16000 and hop = 4 over 4 blocks
                of 4000; ``sdft_hopped`` at hop = 100; the CLI in-process on
                an 8 s, 44100 Hz WAV (m = 1000, hop = 100, hann, latency 1),
@@ -88,8 +96,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                65536, the 8 x 32768 batch, packed f32 and both power forms
                on 16384) and ``roundtrip(low-pass)`` on 8 x 4096, each a
                replay of the prologue's graph and one K1 launch; the
-               collapsed round trip at 1 x 65536 and 8 x 32768, the driver
-               chain at hop = 100, 4 and 1 (a prologue graph per block and
+               collapsed round trip at 1 x 65536 and 8 x 32768, exact and
+               split4, the driver chain at hop = 100 (exact and split4),
+               4 and 1 (a prologue graph per block and
                one K2 launch into the stacked outputs), mono and channel
                batches of 2 and 8, K2's fused round trip, ``sdft_hopped``,
                ``roundtrip_hopped_block`` and ``refresh``) against its
@@ -125,7 +134,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                of 8000 at m = 1000 beside its bound; the
                collapsed round trip for k_tile in {128, 256, 512, 1024} at
                m = 4096 on 65536-sample blocks and on 8 channels of 32768,
-               FP32 against TF32; the hop = 100 driver on 4000- and
+               exact FP32, TF32 and split4, each with its error against
+               float64; split4's products (``_dot4``) against the four
+               stacked along K and one FP32 GEMM, and one block's GEMM and
+               other device time; the hop = 100 driver on 4000- and
                16000-sample blocks with its device idle share; wall
                times (CUDA events) of the public calls; ``Streamer.run``
                against a sequential loop, on the collapsed round trip
@@ -449,6 +461,7 @@ def driver_path(T, dev) -> dict:
     gate("roundtrip state vs sdft state, accumulator (abs)",
          maxerr(st.accumulator, st_k1.accumulator), 1e-3)
     del d64
+    errs.update(split4_path(T, dev))
 
     # -- the driver protocol at hop > 1 (tests/test_tpu.py:274-275) and the
     # hopped analysis (:149), against the full-rate f64 spectra
@@ -499,6 +512,128 @@ def driver_path(T, dev) -> dict:
               f"{r['stored_gbs']:.1f} GB/s stored)", flush=True)
         if not r["finite"]:
             raise AssertionError(f"kernel_parts {v}: output not finite")
+    return errs
+
+
+SPLIT4 = dict(td="float32", fd="float32", mxu="split4")
+
+
+def y64_of(T, plan, x) -> torch.Tensor:
+    """The float64 sdft + isdft of (M,) or (C, M) samples from time zero,
+    channel by channel (a float64 8 x 32768 batch would hold 17 GiB)."""
+    p64 = f64(plan)
+    rows = x[None] if x.ndim == 1 else x
+    ys = []
+    for row in rows:
+        _, d64 = T.sdft(p64, T.init_state(p64, device=row.device), row)
+        ys.append(T.isdft(p64, d64))
+        del d64
+    return ys[0] if x.ndim == 1 else torch.stack(ys)
+
+
+def gemm_kernels(fn) -> dict:
+    """{kernel name: (launches, device ms)} of the cuBLAS GEMM kernels one
+    warm call of ``fn`` ran (torch.profiler), split-K reductions left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and "splitkreduce" not in e.key.lower()
+            and any(w in e.key.lower() for w in ("gemm", "nvjet", "xmma", "cutlass"))}
+
+
+def bf16_gemm(name: str) -> bool:
+    """A cuBLAS bf16 GEMM: nvjet kernels name their types, "t" for bf16 in
+    (``nvjet_tss_*``: bf16 operands, float32 compute and output)."""
+    return name.startswith("nvjet_t") or "bf16" in name.lower()
+
+
+def split_trace(label: str, fn, bf16_min: int, exact: bool) -> None:
+    """One warm call's GEMM kernels: at least ``bf16_min`` bf16 GEMM
+    launches; other GEMMs only where ``exact`` (the driver's exact totals),
+    and then at least one.  The split products never run as SGEMMs."""
+    g = gemm_kernels(fn)
+    n16 = sum(n for k, (n, _) in g.items() if bf16_gemm(k))
+    rest = [k for k in g if not bf16_gemm(k)]
+    print(f"  {label} GEMM kernels: " + "; ".join(
+        f"{k[:64]} x{n} {ms:.4f} ms" for k, (n, ms) in g.items()), flush=True)
+    if n16 < bf16_min or bool(rest) != exact:
+        raise AssertionError(f"{label}: {n16} bf16 GEMM launches (at least {bf16_min}); "
+                             f"other GEMM kernels {rest} ({'some' if exact else 'none'} "
+                             f"expected)")
+
+
+def split4_path(T, dev) -> dict:
+    """Part b, ``mxu="split4"``: the collapsed round trip at m = 4096 on
+    1 x 65536 and 8 x 32768 against float64 (5e-4, the gate of PERF.md
+    section 2) and unequal to the exact FP32 y; its trace (every GEMM a
+    bf16 tensor-core GEMM, none a float32 SGEMM); ``_dot4`` on the card
+    against its plain version on the 8 x 32768 block's totals product
+    (2e-6 of scale); the driver at m = 1000, hop = 100: hop spectra and
+    state bit for bit the exact plan's, samples at the driver's 1e-4."""
+    from sdft_tpu_torch.ops import lti
+
+    errs = {}
+    m = 4096
+    p4 = T.Plan(m, window="hann", precision=T.Precision(**SPLIT4))
+    pe = p4.with_(precision=T.FAST_PRECISION)
+    x = signal(8 * 32768, SEED + 70, dev)
+    for C, M in ((1, 65536), (8, 32768)):
+        xx = x[:M] if C == 1 else x.reshape(C, M)
+        ch = None if C == 1 else C
+        y64 = y64_of(T, p4, xx)
+        st4, y4 = T.roundtrip(p4, T.init_state(p4, channels=ch, device=dev), xx)
+        ste, ye = T.roundtrip(pe, T.init_state(pe, channels=ch, device=dev), xx)
+        err = maxerr(y4, y64)
+        gate(f"split4 roundtrip (collapsed) m={m} {C}x{M} vs f64 sdft+isdft (abs)", err, 5e-4)
+        diff = maxerr(y4, ye)
+        acc = maxerr(st4.accumulator, ste.accumulator)
+        print(f"  split4 against exact FP32 y: largest difference {diff:.3e} (exact FP32 vs "
+              f"f64 {maxerr(ye, y64):.3e}); accumulators {acc:.3e}", flush=True)
+        if diff == 0.0:
+            raise AssertionError(f"split4 y equals the exact FP32 y at {C}x{M}: a no-op")
+        errs[f"split4_C{C}_abs"] = err
+        st = T.init_state(p4, channels=ch, device=dev)
+        split_trace(f"split4 roundtrip {C}x{M}", lambda: T.roundtrip(p4, st, xx), 12, False)
+        del y64
+
+    # _dot4 on the card against its plain version: the totals product of the
+    # 8 x 32768 block, (256 x 1024) comb deltas @ the (1024 x 8192) fine table
+    fine = lti._lti_consts_split_device(p4, 1024, dev)[0]
+    xb = x.reshape(8, 32768)
+    delta = xb.clone()
+    delta[:, 2 * m:] -= xb[:, :-2 * m]
+    a = delta.reshape(256, 1024)
+    got = lti._dot4(a, fine)
+    want = lti._dot4(a.cpu(), lti.Split(fine.hi.cpu(), fine.lo.cpu()))
+    gate("split4 _dot4 (256x1024)@(1024x8192) card vs plain (of scale)",
+         maxerr(got.cpu(), want) / want.abs().max().item(), 2e-6)
+
+    # the driver: the synthesis split, the totals, carry and hop spectra exact
+    m, hop, B = 1000, 100, 16000
+    p4 = T.Plan(m, window="hann", precision=T.Precision(**SPLIT4))
+    pe = p4.with_(precision=T.FAST_PRECISION)
+    xs = signal(4 * B, SEED + 71, dev).reshape(4, B)
+    s4, hd4, ys4 = T.roundtrip_hopped(p4, T.init_state(p4, device=dev), xs, hop)
+    se, hde, yse = T.roundtrip_hopped(pe, T.init_state(pe, device=dev), xs, hop)
+    same_carry = torch.equal(hd4, hde) and all(torch.equal(u, v) for u, v in zip(s4, se))
+    print(f"  split4 roundtrip_hopped(hop={hop}) m={m}: hop spectra and state bit for bit "
+          f"the exact plan's {same_carry}; samples differ {not torch.equal(ys4, yse)}",
+          flush=True)
+    if not same_carry:
+        raise AssertionError("split4 driver: hop spectra or state differ from the exact plan's")
+    if torch.equal(ys4, yse):
+        raise AssertionError("split4 driver: samples equal the exact plan's: a no-op")
+    err = maxerr(ys4.reshape(-1), y64_of(T, p4, xs.reshape(-1)))
+    gate(f"split4 roundtrip_hopped(hop={hop}) m={m} B={B} samples vs f64 (abs)", err, 1e-4)
+    errs["split4_hop100_abs"] = err
+    st = T.init_state(p4, device=dev)
+    split_trace(f"split4 roundtrip_hopped(hop={hop}) block", lambda: T.roundtrip_hopped(
+        p4, st, xs[:1], hop), 8, True)
     return errs
 
 
@@ -843,6 +978,64 @@ def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 3
     return res
 
 
+def split4_products(T, dev, card: str) -> dict:
+    """Phase 5, split4's GEMMs: ``_dot4`` (four bf16 GEMMs summed in
+    ``_dot4``'s order) against the four stacked along K into one bf16 GEMM
+    and against one exact FP32 GEMM, on the totals and PQ products of the
+    collapsed round trip at 8 x 32768 and 1 x 65536 (k_tile 1024): device
+    ms (profiler) and each one's error against the plain version (of
+    scale); then one block's device time by kind (GEMMs, the rest) and its
+    kernel count, split4 against exact FP32."""
+    from sdft_tpu_torch.config import bf16_products
+    from sdft_tpu_torch.ops import lti
+
+    res = {}
+    rng = np.random.default_rng(SEED + 72)
+    plan = T.Plan(4096, window="hann", precision=T.Precision(**SPLIT4))
+    fine, _, PQ = lti._lti_consts_split_device(plan, 1024, dev)
+
+    def stacked(a, b4):
+        x = lti._split_mask(a)
+        with bf16_products():
+            return torch.mm(torch.cat([x.hi, x.hi, x.lo, x.lo], 1), b4, out_dtype=torch.float32)
+
+    for rows in (256, 64):
+        for name, b in (("totals", fine), ("PQ", PQ)):
+            K, n = b.shape
+            a = torch.as_tensor(rng.standard_normal((rows, K)).astype(np.float32), device=dev)
+            b4 = torch.cat([b.hi, b.lo, b.hi, b.lo])
+            bf = b.hi.float() + b.lo.float()
+            want = lti._dot4(a.cpu(), lti.Split(b.hi.cpu(), b.lo.cpu()))
+            scale = want.abs().max().item()
+            line = []
+            for form, fn in (("dot4", lambda: lti._dot4(a, b)), ("stacked", lambda: stacked(a, b4)),
+                             ("fp32", lambda: a @ bf)):
+                err = maxerr(fn().cpu(), want) / scale
+                d = device_time(fn, 20)
+                line.append(f"{form} {d:.4f} ms (vs plain {err:.2e} of scale)")
+                res[f"split4_{name}_{rows}_{form}"] = (d, err)
+            print(f"timing: split4 product {name} ({rows}x{K})@({K}x{n}): " + ", ".join(line)
+                  + f" [{card}]", flush=True)
+
+    x = signal(8 * 32768, SEED + 73, dev)
+    for C, M in ((1, 65536), (8, 32768)):
+        xx = x[:M] if C == 1 else x.reshape(C, M)
+        for mxu in ("highest", "split4"):
+            pl = plan.with_(precision=T.Precision("float32", "float32", mxu=mxu))
+            st = T.init_state(pl, channels=None if C == 1 else C, device=dev)
+            def call():
+                return T.roundtrip(pl, st, xx)
+
+            g = gemm_kernels(call)
+            g_ms = sum(ms for _, ms in g.values())
+            total = device_time(call, 10)
+            print(f"timing: roundtrip mxu={mxu} {C}x{M} one block: device {total:.4f} ms, "
+                  f"GEMM kernels {g_ms:.4f} ms in {sum(n for n, _ in g.values())} launches, "
+                  f"the rest {total - g_ms:.4f} ms; {top_kernels(call, 6)} [{card}]", flush=True)
+            res[f"split4_block_{mxu}_C{C}"] = (total, g_ms)
+    return res
+
+
 def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
     """Phase 5, this slice's calls: the collapsed round trip per k_tile and
     FP32 against TF32, the hop = 100 driver, and the probes beside K1."""
@@ -851,44 +1044,36 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
 
     res = {}
     m = 4096
-    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    sweep = (128, 256, 512, 1024)
     for C, M in ((1, 65536), (8, 32768)):
-        st = T.init_state(plan, channels=None if C == 1 else C, device=dev)
         x = signal(C * M, SEED + 14, dev)
         x = x if C == 1 else x.reshape(C, M)
-        cost = profiling.roundtrip_cost(plan, C * M)
-        for K in (128, 256, 512, 1024):
-            d = device_time(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
-            w = wall_time(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
-            print(f"timing: roundtrip (collapsed) m={m} C={C} M={M} k_tile={K}: device "
-                  f"{d:.4f} ms, wall {w:.4f} ms ({C * M / w * 1e3:.4e} samples/s, "
-                  f"{cost.hbm_bytes / d / 1e6:.3f} GB/s of roundtrip_cost bytes) [{card}]",
-                  flush=True)
-            res[f"lti_C{C}_K{K}"] = (d, w)
-        best = min((128, 256, 512, 1024), key=lambda K: res[f"lti_C{C}_K{K}"][0])
-        print(f"timing: fastest k_tile by device time at C={C} M={M}: {best}; "
-              f"default_k_tile({M}, {m}) = {lti.default_k_tile(M, m)}", flush=True)
-
-    # FP32 against TF32 on the flagship block, both against float64
-    M = 65536
-    x = signal(M, SEED + 15, dev)
-    p64 = f64(plan)
-    _, d64 = T.sdft(p64, T.init_state(p64, device=dev), x)
-    y64 = T.isdft(p64, d64)
-    del d64
-    for mxu in ("highest", "high"):
-        pl = T.Plan(m, window="hann", precision=T.Precision("float32", "float32", mxu=mxu))
-        st = T.init_state(pl, device=dev)
-        _, y = T.roundtrip(pl, st, x)
-        err = maxerr(y, y64)
-        d = device_time(lambda: T.roundtrip(pl, st, x), 10)
-        w = wall_time(lambda: T.roundtrip(pl, st, x), 10)
-        print(f"timing: roundtrip (collapsed) mxu={mxu} m={m} M={M}: error vs f64 "
-              f"{err:.3e} (split4 gate 5e-4), device {d:.4f} ms, wall {w:.4f} ms "
-              f"[{card}]", flush=True)
-        res[f"mxu_{mxu}"] = (err, d, w)
-    tf32_ok = res["mxu_high"][0] <= 5e-4 and res["mxu_high"][1] < res["mxu_highest"][1]
-    print(f"timing: TF32 within split4's gate and faster: {tf32_ok}", flush=True)
+        for mxu in ("highest", "high", "split4"):
+            plan = T.Plan(m, window="hann",
+                          precision=T.Precision("float32", "float32", mxu=mxu))
+            st = T.init_state(plan, channels=None if C == 1 else C, device=dev)
+            y64 = y64_of(T, plan, x) if mxu == "highest" else y64
+            cost = profiling.roundtrip_cost(plan, C * M)
+            for K in sweep:
+                err = maxerr(lti.roundtrip_block_lti(plan, st, x, K)[1], y64)
+                d = device_time(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
+                w = wall_time(lambda: lti.roundtrip_block_lti(plan, st, x, K), 10)
+                print(f"timing: roundtrip (collapsed) mxu={mxu} m={m} C={C} M={M} "
+                      f"k_tile={K}: error vs f64 {err:.3e}, device {d:.4f} ms, wall "
+                      f"{w:.4f} ms ({C * M / w * 1e3:.4e} samples/s, "
+                      f"{cost.hbm_bytes / d / 1e6:.3f} GB/s of roundtrip_cost bytes) [{card}]",
+                      flush=True)
+                res[f"lti_{mxu}_C{C}_K{K}"] = (err, d, w)
+            best = min(sweep, key=lambda K: res[f"lti_{mxu}_C{C}_K{K}"][1])
+            print(f"timing: fastest k_tile by device time, mxu={mxu} C={C} M={M}: {best}; "
+                  f"default_k_tile({M}, {m}) = {lti.default_k_tile(M, m)}", flush=True)
+        del y64
+        K = lti.default_k_tile(M, m)
+        hi, s4 = res[f"lti_highest_C{C}_K{K}"], res[f"lti_split4_C{C}_K{K}"]
+        print(f"timing: split4 at C={C} M={M} k_tile={K}: within its 5e-4 gate "
+              f"{s4[0] <= 5e-4}, device {s4[1]:.4f} against exact FP32 {hi[1]:.4f} ms "
+              f"({s4[1] / hi[1]:.3f}x) [{card}]", flush=True)
+    res.update(split4_products(T, dev, card))
 
     # the driver protocol at hop = 100, 8 chained blocks
     m, hop = 1000, 100
@@ -1205,6 +1390,8 @@ def graph_cells(T, Q, dev) -> dict:
     f32 = T.FAST_PRECISION
     big = T.Plan(4096, window="hann", precision=f32)
     drv = T.Plan(1000, window="hann", precision=f32)
+    big4 = big.with_(precision=T.Precision(**SPLIT4))
+    drv4 = drv.with_(precision=T.Precision(**SPLIT4))
     x = signal(8 * 32768, SEED + 60, dev)
     lead = signal(3000, SEED + 61, dev)
     st1 = T.sdft(big, T.init_state(big, device=dev), lead)[0]
@@ -1231,6 +1418,12 @@ def graph_cells(T, Q, dev) -> dict:
         "roundtrip 1x65536 m=4096": (lambda: T.roundtrip(big, st1, x[:65536]), 1, 0, 0),
         "roundtrip 8x32768 m=4096": (lambda: T.roundtrip(big, st8, x.reshape(8, 32768)),
                                      1, 0, 0),
+        "roundtrip split4 1x65536 m=4096": (lambda: T.roundtrip(big4, st1, x[:65536]),
+                                            1, 0, 0),
+        "roundtrip split4 8x32768 m=4096": (
+            lambda: T.roundtrip(big4, st8, x.reshape(8, 32768)), 1, 0, 0),
+        "roundtrip_hopped split4 hop=100 m=1000 8x16000": (
+            lambda: T.roundtrip_hopped(drv4, sd, x[:128000].reshape(8, 16000), 100), 8, 0, 0),
         "roundtrip_hopped hop=100 m=1000 8x4000": (
             lambda: T.roundtrip_hopped(drv, sd, x[:32000].reshape(8, 4000), 100), 8, 0, 0),
         "roundtrip_hopped hop=100 m=1000 8x16000": (
@@ -1433,8 +1626,10 @@ def enqueue_ms(call, n: int = 5) -> float:
 GRAPH_TIMED = ("sdft planar f32 m=4096 65536", "sdft planar bf16 m=4096 65536",
                "sdft planar f32 m=4096 8x32768",
                "roundtrip 1x65536 m=4096", "roundtrip 8x32768 m=4096",
+               "roundtrip split4 1x65536 m=4096", "roundtrip split4 8x32768 m=4096",
                "roundtrip_hopped hop=100 m=1000 8x4000",
                "roundtrip_hopped hop=100 m=1000 8x16000",
+               "roundtrip_hopped split4 hop=100 m=1000 8x16000",
                "roundtrip_hopped hop=1 (K2) m=1000 8x8000",
                "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000",
                "roundtrip_block_fused (K2) m=4096 16384")
@@ -2480,13 +2675,20 @@ def print_ptxas(log: pathlib.Path) -> None:
             raise AssertionError(f"no {kind} kernel in the build log {log}")
 
 
+def matmul_flags() -> str:
+    """The flags the port sets around its matmuls and must restore."""
+    mm = torch.backends.cuda.matmul
+    return (f"matmul.allow_tf32={mm.allow_tf32} cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"matmul.allow_bf16_reduced_precision_reduction="
+            f"{mm.allow_bf16_reduced_precision_reduction}")
+
+
 def main() -> int:
     card = require_cuda()
     dev = torch.device("cuda", 0)
     print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    flags = matmul_flags()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {flags}", flush=True)
 
     import sdft_tpu_torch as T
     from sdft_tpu_torch.kernels import _build, kparts as P, scan as Q, spectra as S
@@ -2599,9 +2801,9 @@ def main() -> int:
           flush=True)
     print(f"sharded timings (wall ms, device ms, peak GiB): {json.dumps(shard_times)}",
           flush=True)
-    print(f"TF32 after the run: matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    print(f"matmul flags after the run: {matmul_flags()}", flush=True)
+    if matmul_flags() != flags:
+        raise AssertionError(f"the run left the matmul flags at {matmul_flags()}, not {flags}")
 
     src = "sdft_tpu_torch/kernels/csrc/"
     k1, k2 = times["k1_planar_float32"], times["k2_packed"]

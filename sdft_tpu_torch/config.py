@@ -9,13 +9,19 @@ the CPU and on the GPU, so ``resolve()`` is the identity here.
   * "highest": true FP32 products (TF32 off) — the class that meets the
     reference's 1e-7 DFT gate;
   * "high": TF32 tensor-core products (about 10 mantissa bits);
-  * "split4": accepted for checkpoint and plan compatibility and run as
-    "highest".  The JAX package's split4 is a bf16 hi/lo split for the
-    TPU's matrix unit; TF32, the card's cheaper class, misses split4's
-    own 5e-4 gate on the flagship round trip (ROADMAP queue 1, item 5).
+  * "split4": the JAX package's throughput mode (``Precision.split4``):
+    in the collapsed round trip, and in the driver's synthesis, both GEMM
+    operands are split into masked bf16 hi + lo halves and the four cross
+    products are summed in float32 (``ops.lti._dot4``).  On the card each
+    product is a bf16 tensor-core GEMM with float32 output, so the operands
+    keep about 16 bits, not TF32's 10 (ROADMAP queue 1, item 5).  Every
+    other matmul of a split4 plan is true FP32, as in the JAX package,
+    whose other programs read split4 as HIGHEST.
 
 ``fp32_matmul`` sets ``torch.backends.cuda.matmul.allow_tf32`` for the
-duration of the port's matmuls and restores the caller's value.
+duration of the port's float32 matmuls, and ``bf16_products`` clears
+``allow_bf16_reduced_precision_reduction`` for split4's bf16 products;
+both restore the caller's value.
 """
 
 from __future__ import annotations
@@ -63,6 +69,13 @@ class Precision:
         return self.fd == "float32x2"
 
     @property
+    def split4(self) -> bool:
+        """Whether the collapsed round trip and the driver's synthesis take
+        the split bf16 products: "split4" on a float32 FD plan (float64
+        and float32x2 plans ignore the mode, as in the JAX package)."""
+        return self.mxu == "split4" and self.fd == "float32"
+
+    @property
     def allow_tf32(self) -> bool:
         """Whether float32 matmuls may use TF32 ("high" only)."""
         return self.mxu == "high"
@@ -82,14 +95,26 @@ class Precision:
 
 @contextlib.contextmanager
 def fp32_matmul(precision: Precision):
-    """Run the enclosed matmuls in the plan's float32 class: true FP32 for
-    "highest"/"split4", TF32 for "high".  Restores the caller's flag."""
+    """Run the enclosed float32 matmuls in the plan's class: true FP32 for
+    "highest" and "split4", TF32 for "high".  Restores the caller's flag."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = precision.allow_tf32
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def bf16_products():
+    """Keep cuBLAS's bf16 GEMMs from reducing in bf16 (split4's products
+    sum in float32).  Restores the caller's flag."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
 
 
 #: Reference-parity default: float TD, double FD (c/src/sdft/sdft.h:101-118).

@@ -26,6 +26,18 @@ accumulator right after a tile's first sample, demodulated, is
 block by block in a Python loop; at hop = 1 plans that the kernels take go
 through K2 (``kernels.scan``) instead, straight into the stacked outputs.
 
+A "split4" plan (``Precision.split4``) runs the JAX package's
+throughput mode: the tables are split once on the host into masked bf16
+hi + lo pairs (``_lti_consts_split_device``), the activations in the
+program (``_split_mask``), and each product is the sum of the four cross
+products in float32 (``_dot4``; on the card bf16 tensor-core GEMMs with
+float32 output).  The collapsed round trip splits all three GEMMs, so its
+carried accumulator is of the split class too; the driver
+(``_fused_driver_nd``) splits its synthesis only, and its totals, carry
+and hop spectra equal an exact plan's bit for bit.  As in the JAX package
+the hop=1 K2 chain, K1, ``sdft_hopped``, the refresh, the sharded
+programs and the float32x2 tier take no split products.
+
 The scan-free batched driver segment of the JAX package
 (``_driver_segment_nd``, ``segment=True``) is not reachable from the API
 and is not ported.
@@ -35,12 +47,13 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import graphs
-from ..config import fp32_matmul
+from ..config import bf16_products, fp32_matmul
 from ..cplx import pack
 from ..kernels.scan import _scan
 from ..kernels.spectra import _prefix_tiles, kernel_supported, spectra_prologue
@@ -164,29 +177,102 @@ def _to_device(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
-@graphs.cached(maxsize=32)
-def _hop_consts_device(plan: Plan, K: int, fd: torch.dtype,
-                       device: torch.device) -> torch.Tensor:
-    """The fine table of K-sample tiles on ``device``: (K, 2m) with
-    T_i^k on ROI bins (zero elsewhere), (re, im) interleaved."""
+def _fine_interleaved(plan: Plan, K: int) -> np.ndarray:
+    """(K, 2m) float64: T_i^k on ROI bins (zero elsewhere), (re, im)
+    interleaved."""
     fre, fim = _fine_host(plan, K)
     if plan.roi is not None:
         mask = roi_mask(plan, "cpu").numpy()
         fre, fim = fre * mask, fim * mask
-    return _to_device(_interleave(fre, fim), fd, device)
+    return _interleave(fre, fim)
+
+
+def _pq_host(plan: Plan, K: int) -> np.ndarray:
+    """PQ (2m, K) float64 with rows P[:, j] and Q[:, j] interleaved, so
+    that view_as_real(c0) @ PQ is c0_re @ P^T + c0_im @ Q^T in one GEMM."""
+    _, _, P, Q, _ = _lti_constants(plan, K)
+    return np.stack([P.T, Q.T], axis=1).reshape(2 * plan.dftsize, K)
+
+
+@graphs.cached(maxsize=32)
+def _hop_consts_device(plan: Plan, K: int, fd: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """The fine table of K-sample tiles on ``device`` (``_fine_interleaved``)."""
+    return _to_device(_fine_interleaved(plan, K), fd, device)
 
 
 @graphs.cached(maxsize=32)
 def _lti_consts_device(plan: Plan, K: int, fd: torch.dtype,
                        device: torch.device):
     """(fine, GLT, PQ) of the collapsed round trip on ``device``: fine as
-    ``_hop_consts_device``; GLT (K, K); PQ (2m, K) with rows P[:, j] and
-    Q[:, j] interleaved, so that view_as_real(c0) @ PQ is
-    c0_re @ P^T + c0_im @ Q^T in one GEMM."""
-    _, _, P, Q, GLT = _lti_constants(plan, K)
-    PQ = np.stack([P.T, Q.T], axis=1).reshape(2 * plan.dftsize, K)
-    return (_hop_consts_device(plan, K, fd, device), _to_device(GLT, fd, device),
-            _to_device(PQ, fd, device))
+    ``_hop_consts_device``; GLT (K, K); PQ (2m, K) (``_pq_host``)."""
+    return (_hop_consts_device(plan, K, fd, device),
+            _to_device(_lti_constants(plan, K)[4], fd, device),
+            _to_device(_pq_host(plan, K), fd, device))
+
+
+# -- split4: masked bf16 hi/lo operands, four cross products -------------------
+
+class Split(NamedTuple):
+    """A float32 operand as two bf16 halves, hi + lo (``_split_mask``)."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.hi.shape
+
+
+def _split_mask(a: torch.Tensor) -> Split:
+    """Masked bf16 hi + lo split of float32 ``a`` (counterpart of
+    ``sdft_tpu.ops.lti._split_mask`` and ``_bf16_split_host``): hi is
+    ``a`` with 0x8000 added to its bit pattern and the low half-word
+    masked off, so the dropped half is rounded to nearest and a carry runs
+    into the exponent; lo = (a - hi) rounded to bf16.  Integer operations
+    on an int32 view, not a round trip through bfloat16, give hi."""
+    a = a.to(torch.float32)
+    hi = ((a.view(torch.int32) + 0x8000) & -0x10000).view(torch.float32)
+    return Split(hi.to(torch.bfloat16), (a - hi).to(torch.bfloat16))
+
+
+def _dot4(a: torch.Tensor, b: Split) -> torch.Tensor:
+    """a @ b for float32 ``a`` (rows, K) and a split table ``b`` (K, n):
+    all four cross products of the split operands, summed in float32 as
+    (hh + hl) + (lh + ll) (counterpart of ``sdft_tpu.ops.lti._dot4``).
+
+    On the card each product is a cuBLAS bf16 tensor-core GEMM with
+    float32 output (``aten::mm.dtype``), which raises where the build has
+    none.  On the CPU the plain version multiplies the bf16 halves as
+    float32 tensors: each product of two bf16 values is exact in float32,
+    so both sum the same exact products in float32."""
+    x = _split_mask(a)
+    if a.is_cuda:
+        def d(u, v):
+            return torch.mm(u, v, out_dtype=torch.float32)
+    else:
+        def d(u, v):
+            return u.float() @ v.float()
+    with bf16_products():
+        return (d(x.hi, b.hi) + d(x.hi, b.lo)) + (d(x.lo, b.hi) + d(x.lo, b.lo))
+
+
+def _split_host(a: np.ndarray, device) -> Split:
+    """Split a float64 host table, rounded to float32, on the host and
+    move both halves to ``device``."""
+    halves = _split_mask(torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32))
+    return Split(*(h.to(device) for h in halves))
+
+
+@graphs.cached(maxsize=32)
+def _lti_consts_split_device(plan: Plan, K: int, device: torch.device):
+    """(fine, GLT, PQ) of ``_lti_consts_device`` for a split4 plan, each
+    a ``Split`` pair on ``device`` (counterpart of
+    ``sdft_tpu.ops.lti._lti_consts_split_device``).  Splitting the
+    interleaved tables gives the halves of re and im split apart."""
+    return (_split_host(_fine_interleaved(plan, K), device),
+            _split_host(_lti_constants(plan, K)[4], device),
+            _split_host(_pq_host(plan, K), device))
 
 
 @graphs.cached(maxsize=32)
@@ -224,10 +310,15 @@ def _stepped_consts_device(plan: Plan, hop: int, sub: int, fd: torch.dtype,
 
 def _fused_driver_consts(plan: Plan, hop: int, sub: int, device):
     """Device constants of the fused driver at tiles of K = hop*sub:
-    (fine, GLT, PQ), plus the stepped tables when sub > 1.  A "split4"
-    plan takes the exact float32 tables (config: split4 runs as FP32)."""
+    (fine, GLT, PQ), plus the stepped tables when sub > 1.  A split4 plan
+    takes the split GLT and PQ of its synthesis and the exact fine table
+    of its totals (the JAX package's (split, exact) pair,
+    sdft_tpu/ops/lti.py:783-796)."""
     fd = plan.precision.fd_dtype
-    base = _lti_consts_device(plan, hop * sub, fd, device)
+    K = hop * sub
+    base = _lti_consts_device(plan, K, fd, device)
+    if plan.precision.split4:
+        base = (base[0], *_lti_consts_split_device(plan, K, device)[1:])
     if sub == 1:
         return base, None
     return base, _stepped_consts_device(plan, hop, sub, fd, device)
@@ -258,11 +349,12 @@ def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int,
     return rows
 
 
-def _carry(plan: Plan, state: State, samples: torch.Tensor, fine: torch.Tensor):
+def _carry(plan: Plan, state: State, samples: torch.Tensor, fine):
     """The front shared by every collapsed form, for a batched state and
     (C, M) samples: the comb deltas in tiles of K (the rows of ``fine``),
     the per-tile carry in the demodulated frame and the state after the
-    block.
+    block.  A ``Split`` fine table (the split4 round trip) takes the
+    totals by ``_dot4``.
 
     Returns (dt (C, nt, K) FD real, c0 (C, nt, m) complex, new_state)."""
     m = plan.dftsize
@@ -276,8 +368,12 @@ def _carry(plan: Plan, state: State, samples: torch.Tensor, fine: torch.Tensor):
     if nt * K != M:  # zero deltas do not perturb the carry
         delta = torch.nn.functional.pad(delta, (0, nt * K - M))
     dt = delta.view(C, nt, K)
-    with fp32_matmul(plan.precision):
-        totals = torch.view_as_complex((dt @ fine).view(C, nt, m, 2))
+    if isinstance(fine, Split):
+        tot = _dot4(delta.view(C * nt, K), fine)
+    else:
+        with fp32_matmul(plan.precision):
+            tot = dt @ fine
+    totals = torch.view_as_complex(tot.view(C, nt, m, 2))
     row0 = _phase_rows(plan, state.offset, nt, K)
     rt = row0 * totals
     acc = torch.view_as_complex(state.accumulator.to(fd).contiguous())
@@ -294,11 +390,15 @@ def _carry(plan: Plan, state: State, samples: torch.Tensor, fine: torch.Tensor):
 
 def _synthesize(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,
                 M: int) -> torch.Tensor:
-    """y = delta @ GLT + c0_re @ P^T + c0_im @ Q^T: (C, M) in TD precision."""
+    """y = delta @ GLT + c0_re @ P^T + c0_im @ Q^T: (C, M) in TD precision;
+    by ``_dot4`` where the tables are ``Split``."""
     C, nt, K = dt.shape
-    with fp32_matmul(plan.precision):
-        y = torch.addmm(dt.reshape(C * nt, K) @ GLT,
-                        torch.view_as_real(c0).reshape(C * nt, -1), PQ)
+    d2, c2 = dt.reshape(C * nt, K), torch.view_as_real(c0).reshape(C * nt, -1)
+    if isinstance(PQ, Split):
+        y = _dot4(d2, GLT) + _dot4(c2, PQ)
+    else:
+        with fp32_matmul(plan.precision):
+            y = torch.addmm(d2 @ GLT, c2, PQ)
     return y.reshape(C, nt * K)[:, :M].to(plan.precision.td_dtype)
 
 
@@ -369,13 +469,17 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
         output does not depend on it beyond rounding.
 
     Returns (new_state, y) with y (M,) / (C, M) in TD precision, equal to
-    ``isdft_block(sdft_block(...))`` up to rounding, with the same state.
+    ``isdft_block(sdft_block(...))`` up to rounding, with the same state
+    (a split4 plan: up to its split class, in y and the accumulator).
     On the card the block replays as one graph (``graphs``).
     """
     M = samples.shape[-1]
     K = k_tile or default_k_tile(M, plan.dftsize)
-    fine, GLT, PQ = _lti_consts_device(plan, K, plan.precision.fd_dtype,
-                                       samples.device)
+    if plan.precision.split4:
+        fine, GLT, PQ = _lti_consts_split_device(plan, K, samples.device)
+    else:
+        fine, GLT, PQ = _lti_consts_device(plan, K, plan.precision.fd_dtype,
+                                           samples.device)
 
     def run(st, x):
         dt, c0, st = _carry(plan, st, x, fine)

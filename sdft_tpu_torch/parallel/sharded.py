@@ -57,8 +57,7 @@ from ..kernels.scan import _scan
 from ..kernels.spectra import (_check_dtype, _prefix_tiles, _spectra, kernel_supported,
                                spectra_prologue)
 from ..ops.convolve import convolve_padded
-from ..ops.lti import (_fused_driver_consts, _hop_aux,
-                       _hop_consts_device, _lti_consts_device, _phase_rows,
+from ..ops.lti import (_hop_aux, _hop_consts_device, _lti_consts_device, _phase_rows,
                        _refresh_fused, _stepped_consts_device, default_k_tile,
                        driver_sub_factor)
 from ..ops.twiddle import fiddle_rows, roi_mask, synthesis_twiddles
@@ -699,10 +698,14 @@ def sharded_roundtrip_hopped(plan: Plan, mesh: DeviceMesh, state: State, blocks,
     ax = _axes(mesh)
     xs = _local(mesh, blocks, (Shard(1), Shard(2), Replicate()))
     st = _local_state(mesh, state)
-    consts = _fused_driver_consts(plan, hop, sub, xs.device)
+    # the exact tables on every plan: the JAX package's sharded programs
+    # read split4 as HIGHEST (sdft_tpu/parallel/sharded.py:638-639)
+    fd = plan.precision.fd_dtype
+    consts = (_lti_consts_device(plan, hop * sub, fd, xs.device),
+              _stepped_consts_device(plan, hop, sub, fd, xs.device) if sub > 1 else None)
     refresh = refresh_every == 1
     _, mb = _bin_range(plan, ax)
-    hds = torch.empty((nblk, xs.shape[1], L // hop, mb, 2), dtype=plan.precision.fd_dtype,
+    hds = torch.empty((nblk, xs.shape[1], L // hop, mb, 2), dtype=fd,
                       device=xs.device)
     ys = torch.empty(xs.shape, dtype=plan.precision.td_dtype, device=xs.device)
 

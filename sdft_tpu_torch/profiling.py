@@ -186,12 +186,13 @@ def device_time(fn, reps: int, warmup: int = 2, attempts: int = 4) -> float:
     time (its form at 110 % of the HBM bound), and kernels next to the
     boundary have been counted on the wrong side of it.  Only recorded time
     is reported: a measurement in which some kernel's count is not a
-    multiple of ``reps`` (an event lost or misplaced) is taken again, and
-    after ``attempts`` such measurements this raises.  The kernels a CUDA
-    graph's replay launches are recorded like any others (``graphs``: a
-    graphed call reads 0.96-1.08 of its eager run's device time on an
-    H100, the excess being the graph's input and output copies, by
-    chip_smoke.py).  Needs a card."""
+    multiple of ``reps`` (an event lost or misplaced), or that recorded
+    no device time at all (once in a full chip_smoke.py run on an H100),
+    is taken again, and after ``attempts`` such measurements this
+    raises.  The kernels a CUDA graph's replay launches are recorded like
+    any others (``graphs``: a graphed call reads 0.96-1.08 of its eager
+    run's device time on an H100, the excess being the graph's input and
+    output copies, by chip_smoke.py).  Needs a card."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(attempts):
@@ -207,12 +208,10 @@ def device_time(fn, reps: int, warmup: int = 2, attempts: int = 4) -> float:
         events = [e for e in prof.key_averages()
                   if e.count > 0 and e.self_device_time_total > 0]
         odd = [f"{e.key[:40]} x{e.count}" for e in events if e.count % reps]
-        if not events:
-            raise RuntimeError("the profiler saw no device time")
-        if not odd:
+        if events and not odd:
             return sum(e.self_device_time_total for e in events) / reps / 1e3
-        print(f"  (profiler counts not a multiple of {reps} calls, measuring again: "
-              f"{'; '.join(odd)})", flush=True)
+        print(f"  (profiler lost events, measuring again: "
+              f"{'; '.join(odd) or 'no device time recorded'})", flush=True)
     raise RuntimeError(f"the profiler lost or misplaced events in {attempts} measurements")
 
 

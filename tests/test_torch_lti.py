@@ -138,16 +138,6 @@ def test_lti_state_continues_in_sdft_of_both_packages():
     _close(jd2, jd)
 
 
-def test_split4_runs_as_exact_float32():
-    """The port maps mxu="split4" to true FP32 (ROADMAP, item 5)."""
-    p4 = T.Plan(96, precision=T.Precision("float32", "float32", mxu="split4"))
-    ph = T.Plan(96, precision=T.FAST_PRECISION)
-    x = torch.as_tensor(_signal(384, seed=6).astype(np.float32))
-    s4, y4 = T.roundtrip(p4, T.init_state(p4, device="cpu"), x)
-    sh, yh = T.roundtrip(ph, T.init_state(ph, device="cpu"), x)
-    assert torch.equal(y4, yh) and torch.equal(s4.accumulator, sh.accumulator)
-
-
 # -- the driver protocol --------------------------------------------------------------
 
 @pytest.mark.parametrize("hop", [2, 4, 8, 100])

@@ -208,3 +208,46 @@ def test_cuda_benchmark_reports_device_time():
     assert 0 < res["device_seconds"] <= res["median_seconds"]
     assert 0 < res["hbm_roofline_fraction"] <= 1.05
     assert tprof.wall_time(lambda: T.sdft(plan, st, x, "planar"), 3) > 0
+
+
+class _FakeEvent:
+    def __init__(self, key, count, us):
+        self.key, self.count, self.self_device_time_total = key, count, us
+
+
+class _FakeProfile:
+    """A stand-in for ``torch.profiler.profile`` that hands out one
+    recorded measurement after another (a list of events each)."""
+
+    def __init__(self, measurements):
+        self.measurements = measurements
+
+    def __call__(self, **kw):
+        self.events = self.measurements.pop(0)
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def step(self):
+        pass
+
+    def key_averages(self):
+        return self.events
+
+
+@pytest.mark.parametrize("first", [[], [_FakeEvent("k", 3, 30.0)]])
+def test_device_time_measures_again_after_a_lost_measurement(monkeypatch, first):
+    """A measurement that recorded no device time, or a kernel count that is
+    not a multiple of the calls, is taken again; four such raise."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(tprof.time, "sleep", lambda s: None)
+    good = [_FakeEvent("k", 4, 40.0), _FakeEvent("copy", 8, 8.0)]
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile([first, good]))
+    assert tprof.device_time(lambda: None, 4) == pytest.approx(0.012)
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile([first] * 4))
+    with pytest.raises(RuntimeError, match="in 4 measurements"):
+        tprof.device_time(lambda: None, 4)
