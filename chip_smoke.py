@@ -32,20 +32,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
      b. driver ``roundtrip`` without a transform (the collapsed LTI form)
                at the flagship size; with ``mxu="split4"`` at m = 4096 on
                1 x 65536 and 8 x 32768 (within 5e-4 of float64, unequal
-               to the exact FP32 y, every GEMM of its trace a bf16
-               tensor-core GEMM), ``_dot4`` on the card against its plain
-               version on the 8 x 32768 block's totals product, and the
-               split4 driver at m = 1000, hop = 100 (hop spectra and state
-               bit for bit the exact plan's, its split synthesis on bf16
-               GEMMs beside the exact totals); ``roundtrip_hopped`` at
-               m = 1000 with
+               to the exact FP32 y, each split product of its trace a
+               split_mm launch in an SGEMM's place), ``split_mm`` on the
+               card against its plain version on the 8 x 32768 block's
+               totals product, and the split4 driver at m = 1000, hop = 100
+               (hop spectra and state bit for bit the exact plan's, its
+               split synthesis two split_mm launches beside the exact
+               totals); with ``mxu="high"`` (the three-pass class): bit
+               for bit the exact plan where the JAX package pins HIGHEST
+               (``sdft`` packed and planar, ``sdft_power``, the hop=1
+               chain, ``refresh``, ``isdft``, none launching split_mm),
+               the collapsed round trip at m = 4096 on 1 x 65536 and 8 x
+               32768 (within 1e-4 of float64), the driver at m = 1000, hop
+               = 100 over 4 blocks of 16000 (hop spectra within 2e-6,
+               samples 1e-4) and ``sdft_hopped`` (2e-6), each unequal to
+               the exact plan and each split product a split_mm launch
+               (three per block, one for ``sdft_hopped``), no TF32 kernel;
+               ``roundtrip_hopped`` at m = 1000 with
                hop = 100 over 4 blocks of 16000 and hop = 4 over 4 blocks
                of 4000; ``sdft_hopped`` at hop = 100; the CLI in-process on
                an 8 s, 44100 Hz WAV (m = 1000, hop = 100, hann, latency 1),
                in float64 and with --fd32; ``profiling.kernel_parts``, the
                five probes of K1's parts at m = 4096, K = 128, PAD = 64 and
                512 tiles.  The probe kernel must have been launched, for
-               both TPU functions it ports;
+               both TPU functions it ports, and split_mm;
      c. stream ``Streamer.run`` over 16 blocks of 65536 at m = 4096 (the
                collapsed path) against a chain of ``roundtrip``, and
                checkpoint after block 8 + ``restore``; ``run`` over 4
@@ -96,23 +106,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
                65536, the 8 x 32768 batch, packed f32 and both power forms
                on 16384) and ``roundtrip(low-pass)`` on 8 x 4096, each a
                replay of the prologue's graph and one K1 launch; the
-               collapsed round trip at 1 x 65536 and 8 x 32768, exact and
-               split4, the driver chain at hop = 100 (exact and split4),
-               4 and 1 (a prologue graph per block and
+               collapsed round trip at 1 x 65536 and 8 x 32768, exact,
+               "high" and split4, the driver chain at hop = 100 (exact,
+               "high" and split4), 4 (exact and "high") and 1 (a prologue
+               graph per block and
                one K2 launch into the stacked outputs), mono and channel
-               batches of 2 and 8, K2's fused round trip, ``sdft_hopped``,
-               ``roundtrip_hopped_block`` and ``refresh``) against its
-               eager run under ``graphs.disabled()``, bit for bit; three
-               calls on one graph leave the first call's outputs as they
-               were; each cached call adds its K1 and K2 launches to the
-               counts; peak memory graphed and eager, each graph's capture
+               batches of 2 and 8, K2's fused round trip, ``sdft_hopped``
+               (exact and "high"), ``roundtrip_hopped_block`` and
+               ``refresh``) against its eager run under
+               ``graphs.disabled()``, bit for bit; three calls on one graph
+               leave the first call's outputs as they were; each cached
+               call adds its K1, K2 and split_mm launches to the counts; peak memory graphed and eager, each graph's capture
                time and pool bytes; the profiler trace of each hop=1 chain
                (one K2 kernel per block, no device-to-device copy as large
                as a block's spectra); a warm graphed ``sdft`` and chain
                block under ``set_sync_debug_mode("error")``, and the
-               synchronising calls of an eager ``sdft`` ("warn").  K1 and
-               K2 must have been launched.  (Parts a-e run the graphs too:
-               they are the default on the card.)
+               synchronising calls of an eager ``sdft`` ("warn").  K1, K2
+               and split_mm must have been launched.  (Parts a-e run the
+               graphs too: they are the default on the card.)
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
                inputs, at the main path's shapes; K1 and K2 also on part
@@ -120,7 +131,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the launch bit for bit a C = 1 launch on its slice of the
                same prologue; the five probes also at a
                ragged shape (37 tiles, m = 1000) that the persistent grid
-               does not divide;
+               does not divide; split_mm at every shape of the main path
+               (``profiling.SPLIT_MM_SHAPES``) with three and four
+               products, within 2e-6 of scale, ``out`` accumulated bit for
+               bit, its own split bit for bit ``split_mask``'s;
   5. timings   device times (torch.profiler) of each kernel and its plain
                version at m = 4096 on 65536-sample blocks (K1, all five
                store forms, each beside the bytes it moves, its bound and
@@ -134,10 +148,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
                of 8000 at m = 1000 beside its bound; the
                collapsed round trip for k_tile in {128, 256, 512, 1024} at
                m = 4096 on 65536-sample blocks and on 8 channels of 32768,
-               exact FP32, TF32 and split4, each with its error against
-               float64; split4's products (``_dot4``) against the four
-               stacked along K and one FP32 GEMM, and one block's GEMM and
-               other device time; the hop = 100 driver on 4000- and
+               exact FP32, "high" and split4, each with its error against
+               float64, and one block of each by kind (split_mm, cuBLAS
+               GEMMs, the rest) with its wall time; split_mm at every
+               shape of the main path beside its bound, its plain version,
+               cuBLAS's bf16 GEMMs summed the same way and torch.mm in
+               FP32; the hop = 100 driver on 4000- and
                16000-sample blocks with its device idle share; wall
                times (CUDA events) of the public calls; ``Streamer.run``
                against a sequential loop, on the collapsed round trip
@@ -462,6 +478,7 @@ def driver_path(T, dev) -> dict:
          maxerr(st.accumulator, st_k1.accumulator), 1e-3)
     del d64
     errs.update(split4_path(T, dev))
+    errs.update(high_path(T, dev))
 
     # -- the driver protocol at hop > 1 (tests/test_tpu.py:274-275) and the
     # hopped analysis (:149), against the full-rate f64 spectra
@@ -531,9 +548,9 @@ def y64_of(T, plan, x) -> torch.Tensor:
     return ys[0] if x.ndim == 1 else torch.stack(ys)
 
 
-def gemm_kernels(fn) -> dict:
-    """{kernel name: (launches, device ms)} of the cuBLAS GEMM kernels one
-    warm call of ``fn`` ran (torch.profiler), split-K reductions left out."""
+def kernel_table(fn) -> dict:
+    """{kernel name: (launches, device ms)} of one warm call of ``fn``
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -542,39 +559,69 @@ def gemm_kernels(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     return {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.self_device_time_total > 0 and "splitkreduce" not in e.key.lower()
-            and any(w in e.key.lower() for w in ("gemm", "nvjet", "xmma", "cutlass"))}
+            if e.self_device_time_total > 0}
 
 
-def bf16_gemm(name: str) -> bool:
-    """A cuBLAS bf16 GEMM: nvjet kernels name their types, "t" for bf16 in
-    (``nvjet_tss_*``: bf16 operands, float32 compute and output)."""
-    return name.startswith("nvjet_t") or "bf16" in name.lower()
+def is_gemm(name: str) -> bool:
+    """A cuBLAS GEMM kernel (its split-K reduction left out)."""
+    low = name.lower()
+    return "splitkreduce" not in low and any(w in low for w in ("gemm", "nvjet", "xmma",
+                                                                "cutlass"))
 
 
-def split_trace(label: str, fn, bf16_min: int, exact: bool) -> None:
-    """One warm call's GEMM kernels: at least ``bf16_min`` bf16 GEMM
-    launches; other GEMMs only where ``exact`` (the driver's exact totals),
-    and then at least one.  The split products never run as SGEMMs."""
-    g = gemm_kernels(fn)
-    n16 = sum(n for k, (n, _) in g.items() if bf16_gemm(k))
-    rest = [k for k in g if not bf16_gemm(k)]
-    print(f"  {label} GEMM kernels: " + "; ".join(
-        f"{k[:64]} x{n} {ms:.4f} ms" for k, (n, ms) in g.items()), flush=True)
-    if n16 < bf16_min or bool(rest) != exact:
-        raise AssertionError(f"{label}: {n16} bf16 GEMM launches (at least {bf16_min}); "
-                             f"other GEMM kernels {rest} ({'some' if exact else 'none'} "
-                             f"expected)")
+def is_split_mm(name: str) -> bool:
+    """A kernel of ``kernels.split_mm`` (the products or their split-K sum)."""
+    return "split_mm" in name
+
+
+def matmul_ops(fn) -> int:
+    """The float32 matmuls (aten mm, addmm, bmm, mv, dot) that one eager
+    call of ``fn`` dispatches (torch.profiler, host side)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdft_tpu_torch import graphs
+
+    names = {"aten::mm", "aten::addmm", "aten::bmm", "aten::mv", "aten::dot"}
+    with graphs.disabled():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in names)
+
+
+def split_sites(label: str, fn, exact_fn, sites: int) -> None:
+    """One warm (graphed) call's kernels: ``sites`` launches of the
+    split_mm product kernel and no TF32 kernel; and, eagerly, ``sites``
+    float32 matmuls fewer than the exact plan dispatches: each split
+    product stands in one matmul's place, so none runs as an SGEMM or in
+    TF32."""
+    got, ref = kernel_table(fn), kernel_table(exact_fn)
+    n = sum(c for k, (c, _) in got.items() if "split_mm_kernel" in k)
+    g, ge = (sum(c for k, (c, _) in t.items() if is_gemm(k)) for t in (got, ref))
+    ops, ops_e = matmul_ops(fn), matmul_ops(exact_fn)
+    tf32 = [k for k in got if "tf32" in k.lower()]
+    print(f"  {label}: split_mm launches {n} (expected {sites}); matmuls dispatched {ops} "
+          f"against the exact plan's {ops_e}; cuBLAS GEMM kernels {g} against {ge}; "
+          f"kernels: " + "; ".join(f"{k[:56]} x{c} {ms:.4f} ms" for k, (c, ms) in got.items()
+                                   if is_gemm(k) or is_split_mm(k)), flush=True)
+    if n != sites or ops_e - ops != sites or tf32:
+        raise AssertionError(f"{label}: {n} split_mm launches, {ops_e - ops} matmuls fewer "
+                             f"than the exact plan (both {sites} expected), TF32 kernels "
+                             f"{tf32}")
 
 
 def split4_path(T, dev) -> dict:
     """Part b, ``mxu="split4"``: the collapsed round trip at m = 4096 on
     1 x 65536 and 8 x 32768 against float64 (5e-4, the gate of PERF.md
-    section 2) and unequal to the exact FP32 y; its trace (every GEMM a
-    bf16 tensor-core GEMM, none a float32 SGEMM); ``_dot4`` on the card
-    against its plain version on the 8 x 32768 block's totals product
-    (2e-6 of scale); the driver at m = 1000, hop = 100: hop spectra and
-    state bit for bit the exact plan's, samples at the driver's 1e-4."""
+    section 2) and unequal to the exact FP32 y; its trace (every split
+    product a split_mm launch, with four products, none a float32 SGEMM);
+    ``split_mm`` on the card against its plain version on the 8 x 32768
+    block's totals product (2e-6 of scale); the driver at m = 1000, hop =
+    100: hop spectra and state bit for bit the exact plan's, samples at the
+    driver's 1e-4, its synthesis two split_mm launches."""
+    from sdft_tpu_torch.kernels.split_mm import split_mm
     from sdft_tpu_torch.ops import lti
 
     errs = {}
@@ -598,19 +645,21 @@ def split4_path(T, dev) -> dict:
             raise AssertionError(f"split4 y equals the exact FP32 y at {C}x{M}: a no-op")
         errs[f"split4_C{C}_abs"] = err
         st = T.init_state(p4, channels=ch, device=dev)
-        split_trace(f"split4 roundtrip {C}x{M}", lambda: T.roundtrip(p4, st, xx), 12, False)
+        split_sites(f"split4 roundtrip {C}x{M}", lambda: T.roundtrip(p4, st, xx),
+                    lambda: T.roundtrip(pe, st, xx), 3)
         del y64
 
-    # _dot4 on the card against its plain version: the totals product of the
-    # 8 x 32768 block, (256 x 1024) comb deltas @ the (1024 x 8192) fine table
+    # split_mm on the card against its plain version: the totals product of
+    # the 8 x 32768 block, (256 x 1024) comb deltas @ the (1024 x 8192) fine
+    # table
     fine = lti._lti_consts_split_device(p4, 1024, dev)[0]
     xb = x.reshape(8, 32768)
     delta = xb.clone()
     delta[:, 2 * m:] -= xb[:, :-2 * m]
     a = delta.reshape(256, 1024)
-    got = lti._dot4(a, fine)
-    want = lti._dot4(a.cpu(), lti.Split(fine.hi.cpu(), fine.lo.cpu()))
-    gate("split4 _dot4 (256x1024)@(1024x8192) card vs plain (of scale)",
+    got = split_mm(a, fine, 4)
+    want = split_mm(a.cpu(), fine.map(torch.Tensor.cpu), 4)
+    gate("split4 split_mm (256x1024)@(1024x8192) card vs plain (of scale)",
          maxerr(got.cpu(), want) / want.abs().max().item(), 2e-6)
 
     # the driver: the synthesis split, the totals, carry and hop spectra exact
@@ -632,8 +681,111 @@ def split4_path(T, dev) -> dict:
     gate(f"split4 roundtrip_hopped(hop={hop}) m={m} B={B} samples vs f64 (abs)", err, 1e-4)
     errs["split4_hop100_abs"] = err
     st = T.init_state(p4, device=dev)
-    split_trace(f"split4 roundtrip_hopped(hop={hop}) block", lambda: T.roundtrip_hopped(
-        p4, st, xs[:1], hop), 8, True)
+    split_sites(f"split4 roundtrip_hopped(hop={hop}) block",
+                lambda: T.roundtrip_hopped(p4, st, xs[:1], hop),
+                lambda: T.roundtrip_hopped(pe, st, xs[:1], hop), 2)
+    return errs
+
+
+HIGH = dict(td="float32", fd="float32", mxu="high")
+#: shapes of the "high" checks (module constants, so a rehearsal on the CPU
+#: can shrink them): the collapsed round trip's m and its two blocks, the
+#: exact sites' block, the driver's m, hop and blocks
+HIGH_M, HIGH_BLOCKS, HIGH_EXACT_BLOCK = 4096, ((1, 65536), (8, 32768)), 16384
+HIGH_DRV_M, HIGH_HOP, HIGH_DRV_BLOCK, HIGH_K2_BLOCK = 1000, 100, 16000, 8000
+
+
+def high_path(T, dev) -> dict:
+    """Part b, ``mxu="high"`` (the three-pass split class).  Where the JAX
+    package pins HIGHEST, a "high" plan is bit for bit the "highest" one's,
+    and launches no split_mm: ``sdft`` packed and planar f32 and
+    ``sdft_power`` at m = 4096 (K1's prologue), the hop=1 chain at m = 1000
+    (K2), ``refresh`` and ``isdft``.  Where it reads ``mxu_precision``,
+    against float64 and unequal to the exact plan: the collapsed round trip
+    at m = 4096 on 1 x 65536 and 8 x 32768 (y <= 1e-4 abs), the driver at
+    m = 1000, hop = 100 over 4 blocks of 16000 (hop spectra <= 2e-6 abs,
+    samples <= 1e-4) and ``sdft_hopped`` on the same samples (<= 2e-6);
+    each block's kernels (``split_sites``)."""
+    from sdft_tpu_torch.kernels import split_mm as M
+
+    errs = {}
+    big = T.Plan(HIGH_M, window="hann", precision=T.Precision(**HIGH))
+    drv = big.with_(dftsize=HIGH_DRV_M)
+    bige, drve = (p.with_(precision=T.FAST_PRECISION) for p in (big, drv))
+    x = signal(max(C * M_ for C, M_ in HIGH_BLOCKS), SEED + 80, dev)
+    E, K2B = HIGH_EXACT_BLOCK, HIGH_K2_BLOCK
+    d_exact = T.sdft(bige, T.init_state(bige, device=dev), x[:E])[1]
+
+    def init(p, C=None):
+        return T.init_state(p, channels=C, device=dev)
+
+    exact_sites = {
+        f"sdft packed f32 m={HIGH_M} {E}": (big, lambda p: T.sdft(p, init(p), x[:E])),
+        f"sdft planar f32 m={HIGH_M} {E}": (big, lambda p: T.sdft(p, init(p), x[:E],
+                                                                  "planar")),
+        f"sdft_power f32 m={HIGH_M} {E}": (big, lambda p: T.sdft_power(p, init(p), x[:E])),
+        f"roundtrip_hopped hop=1 (K2) m={HIGH_DRV_M} 2x{K2B}": (
+            drv, lambda p: T.roundtrip_hopped(p, init(p), x[:2 * K2B].reshape(2, K2B), 1)),
+        f"refresh m={HIGH_M}": (big, lambda p: T.refresh(p, T.sdft(p, init(p), x[:E])[0])),
+        f"isdft m={HIGH_M} {E}": (big, lambda p: T.isdft(p, d_exact)),
+    }
+    for label, (p, call) in exact_sites.items():
+        n0 = M.LAUNCHES
+        got = call(p)
+        launched = M.LAUNCHES - n0
+        want = call(p.with_(precision=T.FAST_PRECISION))
+        torch.cuda.synchronize()
+        equal = same(got, want)
+        print(f"  high {label}: bit for bit the highest plan's {equal}; split_mm launches "
+              f"{launched} (expected 0)", flush=True)
+        if not equal or launched:
+            raise AssertionError(f"high {label}: differs from the exact plan or launched "
+                                 f"split_mm where the JAX package is exact")
+    del d_exact
+
+    for C, M_ in HIGH_BLOCKS:
+        xx = x[:M_] if C == 1 else x[:C * M_].reshape(C, M_)
+        ch = None if C == 1 else C
+        y64 = y64_of(T, big, xx)
+        _, yh = T.roundtrip(big, init(big, ch), xx)
+        _, ye = T.roundtrip(bige, init(bige, ch), xx)
+        err = maxerr(yh, y64)
+        gate(f"high roundtrip (collapsed) m={HIGH_M} {C}x{M_} vs f64 sdft+isdft (abs)", err,
+             1e-4)
+        print(f"  high against exact FP32 y: largest difference {maxerr(yh, ye):.3e} (exact "
+              f"FP32 vs f64 {maxerr(ye, y64):.3e})", flush=True)
+        if torch.equal(yh, ye):
+            raise AssertionError(f"high y equals the exact FP32 y at {C}x{M_}: a no-op")
+        errs[f"high_C{C}_abs"] = err
+        st = init(big, ch)
+        split_sites(f"high roundtrip {C}x{M_}", lambda: T.roundtrip(big, st, xx),
+                    lambda: T.roundtrip(bige, st, xx), 3)
+        del y64
+
+    m, hop, B = HIGH_DRV_M, HIGH_HOP, HIGH_DRV_BLOCK
+    p64 = f64(drv)
+    xs = signal(4 * B, SEED + 81, dev).reshape(4, B)
+    _, hdh, ysh = T.roundtrip_hopped(drv, init(drv), xs, hop)
+    _, hde, yse = T.roundtrip_hopped(drve, init(drve), xs, hop)
+    _, hs = T.sdft_hopped(drv, init(drv), xs.reshape(-1), hop)
+    _, hse = T.sdft_hopped(drve, init(drve), xs.reshape(-1), hop)
+    _, d64 = T.sdft(p64, init(p64), xs.reshape(-1))
+    e_d = maxerr(hdh.reshape(-1, m, 2), d64[::hop])
+    e_y = maxerr(ysh.reshape(-1), T.isdft(p64, d64))
+    e_h = maxerr(hs, d64[::hop])
+    gate(f"high roundtrip_hopped(hop={hop}) m={m} B={B} spectra vs f64 (abs)", e_d, 2e-6)
+    gate(f"high roundtrip_hopped(hop={hop}) m={m} B={B} samples vs f64 (abs)", e_y, 1e-4)
+    gate(f"high sdft_hopped(hop={hop}) m={m} vs f64 (abs)", e_h, 2e-6)
+    if torch.equal(hdh, hde) or torch.equal(ysh, yse) or torch.equal(hs, hse):
+        raise AssertionError("high driver or sdft_hopped equals the exact plan's: a no-op")
+    errs["high_hop100_abs"] = (e_d, e_y, e_h)
+    del d64
+    st = init(drv)
+    split_sites(f"high roundtrip_hopped(hop={hop}) block",
+                lambda: T.roundtrip_hopped(drv, st, xs[:1], hop),
+                lambda: T.roundtrip_hopped(drve, st, xs[:1], hop), 3)
+    split_sites(f"high sdft_hopped(hop={hop}) {B}", lambda: T.sdft_hopped(drv, st, xs[0], hop),
+                lambda: T.sdft_hopped(drve, st, xs[0], hop), 1)
     return errs
 
 
@@ -978,67 +1130,140 @@ def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 3
     return res
 
 
-def split4_products(T, dev, card: str) -> dict:
-    """Phase 5, split4's GEMMs: ``_dot4`` (four bf16 GEMMs summed in
-    ``_dot4``'s order) against the four stacked along K into one bf16 GEMM
-    and against one exact FP32 GEMM, on the totals and PQ products of the
-    collapsed round trip at 8 x 32768 and 1 x 65536 (k_tile 1024): device
-    ms (profiler) and each one's error against the plain version (of
-    scale); then one block's device time by kind (GEMMs, the rest) and its
-    kernel count, split4 against exact FP32."""
-    from sdft_tpu_torch.config import bf16_products
-    from sdft_tpu_torch.ops import lti
+#: bit patterns at the edges of the masked split: ties, a carry into the
+#: exponent, the largest finite values, subnormals, zeros
+SPLIT_EDGES = (0x3F808000, 0x3F807FFF, 0x3F808001, 0x3FFF8000, 0x3FFFFFFF, 0xBF808000,
+               0xBF807FFF, 0x7F7FFFFF, 0x7F7F8000, 0x7F7F7FFF, 0xFF7FFFFF, 0x00000001,
+               0x00007FFF, 0x00008000, 0x0000FFFF, 0x007FFFFF, 0x007F8000, 0x80008000,
+               0x807FFFFF, 0x00800000, 0x00000000, 0x80000000)
+
+
+def split_operands(rows: int, K: int, N: int, dev, seed: int):
+    """A float32 (rows, K) activation and a split (K, N) table on the card."""
+    from sdft_tpu_torch.kernels import split_mm as M
+
+    rng = np.random.default_rng(seed)
+    a = torch.as_tensor((rng.standard_normal((rows, K)) * 4).astype(np.float32), device=dev)
+    b = M.split_mask(torch.as_tensor(rng.standard_normal((K, N)), dtype=torch.float32))
+    return a, b.map(lambda h: h.to(dev))
+
+
+#: shapes off the main path for the kernel's ragged edges and split-K
+SPLIT_MM_RAGGED = {"ragged 37x33x7": (37, 33, 7), "ragged 1x8x4000": (1, 8, 4000),
+                   "ragged 129x1000x129": (129, 1000, 129)}
+
+
+def split_mm_vs_plain(dev) -> tuple:
+    """Phase 4, ``split_mm``: the kernel's own split bit for bit
+    ``split_mask``'s (the edge patterns and 4093 random values); at every
+    shape of the main path (``profiling.SPLIT_MM_SHAPES``) and the ragged
+    ones, with three and four products, the kernel within 2e-6 of scale of
+    its plain version on the same inputs (each one's distance from the
+    float64 sum of the same products printed beside), and ``out``
+    accumulated bit for bit as out + product.  Returns the largest
+    difference, absolute and of scale."""
+    from sdft_tpu_torch import profiling
+    from sdft_tpu_torch.kernels import split_mm as M
+
+    vals = np.concatenate([np.asarray(SPLIT_EDGES, np.uint32).view(np.float32),
+                           (np.random.default_rng(SEED + 85).standard_normal(4093) * 100)
+                           .astype(np.float32)])
+    a = torch.as_tensor(vals, device=dev)
+    got, want = M.launch_split_mask(a), M.split_mask(a)
+    halves = all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                 for g, w in zip(got, want))
+    print(f"  split_mm: the kernel's split bit for bit split_mask's {halves}", flush=True)
+    if not halves:
+        raise AssertionError("split_mm: the kernel's halves differ from split_mask's")
+    worst = worst_abs = 0.0
+    shapes = {**profiling.SPLIT_MM_SHAPES, **SPLIT_MM_RAGGED}
+    for i, (label, (rows, K, N)) in enumerate(shapes.items()):
+        a, b = split_operands(rows, K, N, dev, SEED + 86 + i)
+        base = signal(rows * N, SEED + 87, dev).reshape(rows, N)
+        x = M.split_mask(a)
+        products = [u.double() @ v.double() for u, v in
+                    ((x.hi, b.hi), (x.hi, b.lo), (x.lo, b.hi), (x.lo, b.lo))]
+        for passes in (3, 4):
+            got = M.launch_split_mm(a, b, passes)
+            acc = M.launch_split_mm(a, b, passes, out=base.clone())
+            want = M.split_mm_reference(a, b, passes)
+            err_abs = maxerr(got, want)
+            scale = want.abs().max().item()
+            err = err_abs / scale
+            exact = sum(products[:passes])
+            print(f"  split_mm {label} passes={passes}: from the float64 sum of the same "
+                  f"products, kernel {maxerr(got, exact) / scale:.3e}, plain "
+                  f"{maxerr(want, exact) / scale:.3e} of scale", flush=True)
+            gate(f"split_mm {label} ({rows}x{K})@({K}x{N}) passes={passes} vs plain "
+                 f"(of scale)", err, 2e-6)
+            if not torch.equal(acc, base + got):
+                raise AssertionError(f"split_mm {label}: out + product not bit for bit")
+            worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+    return worst_abs, worst
+
+
+def split_mm_timings(dev, card: str) -> dict:
+    """Phase 5, ``split_mm`` at every shape of the main path, three and four
+    products: the kernel's device time (profiler) beside its bound
+    (``profiling.split_mm_bound``), its plain version, cuBLAS's bf16 GEMMs
+    summed the same way (``profiling.cublas_split_mm``: the route split4
+    took before the kernel) and one torch.mm in FP32 on the summed table
+    (the library call for the product)."""
+    from sdft_tpu_torch import profiling
+    from sdft_tpu_torch.kernels import split_mm as M
 
     res = {}
-    rng = np.random.default_rng(SEED + 72)
-    plan = T.Plan(4096, window="hann", precision=T.Precision(**SPLIT4))
-    fine, _, PQ = lti._lti_consts_split_device(plan, 1024, dev)
+    for i, (label, (rows, K, N)) in enumerate(profiling.SPLIT_MM_SHAPES.items()):
+        a, b = split_operands(rows, K, N, dev, SEED + 88 + i)
+        bf = b.hi.float() + b.lo.float()
+        fp32 = device_time(lambda: a @ bf, 10)
+        for passes in (3, 4):
+            kern = device_time(lambda: M.launch_split_mm(a, b, passes), 10)
+            plain = device_time(lambda: M.split_mm_reference(a, b, passes), 10)
+            cub = device_time(lambda: profiling.cublas_split_mm(a, b, passes), 10)
+            b_ms, by = profiling.split_mm_bound(rows, K, N, passes)
+            print(f"timing: split_mm {label} ({rows}x{K})@({K}x{N}) passes={passes}: "
+                  f"{kern:.4f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / kern:.1%} of the bound; "
+                  f"plain {plain:.4f}, cuBLAS bf16 x{passes} {cub:.4f}, torch.mm FP32 "
+                  f"{fp32:.4f} ms [{card}]", flush=True)
+            res[label, passes] = (kern, plain, b_ms, by, fp32, cub)
+    return res
 
-    def stacked(a, b4):
-        x = lti._split_mask(a)
-        with bf16_products():
-            return torch.mm(torch.cat([x.hi, x.hi, x.lo, x.lo], 1), b4, out_dtype=torch.float32)
 
-    for rows in (256, 64):
-        for name, b in (("totals", fine), ("PQ", PQ)):
-            K, n = b.shape
-            a = torch.as_tensor(rng.standard_normal((rows, K)).astype(np.float32), device=dev)
-            b4 = torch.cat([b.hi, b.lo, b.hi, b.lo])
-            bf = b.hi.float() + b.lo.float()
-            want = lti._dot4(a.cpu(), lti.Split(b.hi.cpu(), b.lo.cpu()))
-            scale = want.abs().max().item()
-            line = []
-            for form, fn in (("dot4", lambda: lti._dot4(a, b)), ("stacked", lambda: stacked(a, b4)),
-                             ("fp32", lambda: a @ bf)):
-                err = maxerr(fn().cpu(), want) / scale
-                d = device_time(fn, 20)
-                line.append(f"{form} {d:.4f} ms (vs plain {err:.2e} of scale)")
-                res[f"split4_{name}_{rows}_{form}"] = (d, err)
-            print(f"timing: split4 product {name} ({rows}x{K})@({K}x{n}): " + ", ".join(line)
-                  + f" [{card}]", flush=True)
-
+def class_blocks(T, dev, card: str) -> dict:
+    """Phase 5, one block of the collapsed round trip (m = 4096, k_tile
+    1024, graphed) at 1 x 65536 and 8 x 32768 by matmul class (highest,
+    high, split4): device ms by kind (split_mm, cuBLAS GEMMs, the rest,
+    profiler) and wall ms (CUDA events), in one run."""
+    res = {}
+    plan = T.Plan(4096, window="hann", precision=T.FAST_PRECISION)
     x = signal(8 * 32768, SEED + 73, dev)
-    for C, M in ((1, 65536), (8, 32768)):
-        xx = x[:M] if C == 1 else x.reshape(C, M)
-        for mxu in ("highest", "split4"):
+    for C, M_ in ((1, 65536), (8, 32768)):
+        xx = x[:M_] if C == 1 else x.reshape(C, M_)
+        for mxu in ("highest", "high", "split4"):
             pl = plan.with_(precision=T.Precision("float32", "float32", mxu=mxu))
             st = T.init_state(pl, channels=None if C == 1 else C, device=dev)
+
             def call():
                 return T.roundtrip(pl, st, xx)
 
-            g = gemm_kernels(call)
-            g_ms = sum(ms for _, ms in g.values())
+            kt = kernel_table(call)
+            s_ms = sum(ms for k, (_, ms) in kt.items() if is_split_mm(k))
+            g_ms = sum(ms for k, (_, ms) in kt.items() if is_gemm(k))
             total = device_time(call, 10)
-            print(f"timing: roundtrip mxu={mxu} {C}x{M} one block: device {total:.4f} ms, "
-                  f"GEMM kernels {g_ms:.4f} ms in {sum(n for n, _ in g.values())} launches, "
-                  f"the rest {total - g_ms:.4f} ms; {top_kernels(call, 6)} [{card}]", flush=True)
-            res[f"split4_block_{mxu}_C{C}"] = (total, g_ms)
+            wall = wall_time(call, 10)
+            print(f"timing: roundtrip mxu={mxu} {C}x{M_} one block: device {total:.4f} ms "
+                  f"(split_mm {s_ms:.4f}, cuBLAS GEMMs {g_ms:.4f}, the rest "
+                  f"{total - s_ms - g_ms:.4f}), wall {wall:.4f} ms; {top_kernels(call, 6)} "
+                  f"[{card}]", flush=True)
+            res[f"block_{mxu}_C{C}"] = (total, s_ms, g_ms, wall)
     return res
 
 
 def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
     """Phase 5, this slice's calls: the collapsed round trip per k_tile and
-    FP32 against TF32, the hop = 100 driver, and the probes beside K1."""
+    matmul class (exact FP32, "high", split4), one block by kind, the hop =
+    100 driver, and the probes beside K1."""
     from sdft_tpu_torch import profiling
     from sdft_tpu_torch.ops import lti
 
@@ -1069,11 +1294,13 @@ def driver_timings(T, P, dev, card: str, k1_ms: float) -> dict:
                   f"default_k_tile({M}, {m}) = {lti.default_k_tile(M, m)}", flush=True)
         del y64
         K = lti.default_k_tile(M, m)
-        hi, s4 = res[f"lti_highest_C{C}_K{K}"], res[f"lti_split4_C{C}_K{K}"]
-        print(f"timing: split4 at C={C} M={M} k_tile={K}: within its 5e-4 gate "
-              f"{s4[0] <= 5e-4}, device {s4[1]:.4f} against exact FP32 {hi[1]:.4f} ms "
-              f"({s4[1] / hi[1]:.3f}x) [{card}]", flush=True)
-    res.update(split4_products(T, dev, card))
+        hi = res[f"lti_highest_C{C}_K{K}"]
+        for mxu, limit in (("high", 1e-4), ("split4", 5e-4)):
+            r = res[f"lti_{mxu}_C{C}_K{K}"]
+            print(f"timing: {mxu} at C={C} M={M} k_tile={K}: within its {limit:g} gate "
+                  f"{r[0] <= limit}, device {r[1]:.4f} against exact FP32 {hi[1]:.4f} ms "
+                  f"({r[1] / hi[1]:.3f}x) [{card}]", flush=True)
+    res.update(class_blocks(T, dev, card))
 
     # the driver protocol at hop = 100, 8 chained blocks
     m, hop = 1000, 100
@@ -1381,7 +1608,7 @@ def same(a, b) -> bool:
 def graph_cells(T, Q, dev) -> dict:
     """The graphed paths on the cells of PERF.md section 5, on carried
     (non-zero) states: {label: (call, blocks per call, K2 launches per
-    call, K1 launches per call)}.  ``sdft``, ``sdft_power`` and
+    call, K1 launches per call, split_mm launches per call)}.  ``sdft``, ``sdft_power`` and
     ``roundtrip(transform)`` replay the prologue's graph and launch K1
     after it, in every K1 store form; the hop=1 chains replay the
     prologue's graph per block and launch K2 after it."""
@@ -1392,6 +1619,8 @@ def graph_cells(T, Q, dev) -> dict:
     drv = T.Plan(1000, window="hann", precision=f32)
     big4 = big.with_(precision=T.Precision(**SPLIT4))
     drv4 = drv.with_(precision=T.Precision(**SPLIT4))
+    bigh = big.with_(precision=T.Precision(**HIGH))
+    drvh = drv.with_(precision=T.Precision(**HIGH))
     x = signal(8 * 32768, SEED + 60, dev)
     lead = signal(3000, SEED + 61, dev)
     st1 = T.sdft(big, T.init_state(big, device=dev), lead)[0]
@@ -1403,72 +1632,85 @@ def graph_cells(T, Q, dev) -> dict:
     low = torch.arange(4096, device=dev) < 400
     return {
         "sdft planar f32 m=4096 65536": (lambda: T.sdft(big, st1, x[:65536], "planar"),
-                                         1, 0, 1),
+                                         1, 0, 1, 0),
         "sdft planar bf16 m=4096 65536": (
-            lambda: T.sdft(big, st1, x[:65536], "planar", "bfloat16"), 1, 0, 1),
+            lambda: T.sdft(big, st1, x[:65536], "planar", "bfloat16"), 1, 0, 1, 0),
         "sdft planar f32 m=4096 8x32768": (
-            lambda: T.sdft(big, st8, x.reshape(8, 32768), "planar"), 1, 0, 1),
-        "sdft packed f32 m=4096 16384": (lambda: T.sdft(big, st1, x[:16384]), 1, 0, 1),
-        "sdft_power f32 m=4096 16384": (lambda: T.sdft_power(big, st1, x[:16384]), 1, 0, 1),
+            lambda: T.sdft(big, st8, x.reshape(8, 32768), "planar"), 1, 0, 1, 0),
+        "sdft packed f32 m=4096 16384": (lambda: T.sdft(big, st1, x[:16384]), 1, 0, 1, 0),
+        "sdft_power f32 m=4096 16384": (lambda: T.sdft_power(big, st1, x[:16384]), 1, 0, 1, 0),
         "sdft_power bf16 m=4096 16384": (
-            lambda: T.sdft_power(big, st1, x[:16384], "bfloat16"), 1, 0, 1),
+            lambda: T.sdft_power(big, st1, x[:16384], "bfloat16"), 1, 0, 1, 0),
         "roundtrip(low-pass) m=4096 8x4096": (
             lambda: T.roundtrip(big, st8, x[:32768].reshape(8, 4096), lambda z: z * low),
-            1, 0, 1),
-        "roundtrip 1x65536 m=4096": (lambda: T.roundtrip(big, st1, x[:65536]), 1, 0, 0),
+            1, 0, 1, 0),
+        "roundtrip 1x65536 m=4096": (lambda: T.roundtrip(big, st1, x[:65536]), 1, 0, 0, 0),
         "roundtrip 8x32768 m=4096": (lambda: T.roundtrip(big, st8, x.reshape(8, 32768)),
-                                     1, 0, 0),
+                                     1, 0, 0, 0),
         "roundtrip split4 1x65536 m=4096": (lambda: T.roundtrip(big4, st1, x[:65536]),
-                                            1, 0, 0),
+                                            1, 0, 0, 3),
         "roundtrip split4 8x32768 m=4096": (
-            lambda: T.roundtrip(big4, st8, x.reshape(8, 32768)), 1, 0, 0),
+            lambda: T.roundtrip(big4, st8, x.reshape(8, 32768)), 1, 0, 0, 3),
         "roundtrip_hopped split4 hop=100 m=1000 8x16000": (
-            lambda: T.roundtrip_hopped(drv4, sd, x[:128000].reshape(8, 16000), 100), 8, 0, 0),
+            lambda: T.roundtrip_hopped(drv4, sd, x[:128000].reshape(8, 16000), 100), 8, 0, 0,
+            16),
+        "roundtrip high 1x65536 m=4096": (lambda: T.roundtrip(bigh, st1, x[:65536]),
+                                          1, 0, 0, 3),
+        "roundtrip high 8x32768 m=4096": (
+            lambda: T.roundtrip(bigh, st8, x.reshape(8, 32768)), 1, 0, 0, 3),
+        "roundtrip_hopped high hop=100 m=1000 8x16000": (
+            lambda: T.roundtrip_hopped(drvh, sd, x[:128000].reshape(8, 16000), 100), 8, 0, 0,
+            24),
+        "roundtrip_hopped high hop=4 m=1000 4x4000": (
+            lambda: T.roundtrip_hopped(drvh, sd, x[:16000].reshape(4, 4000), 4), 4, 0, 0, 16),
+        "sdft_hopped high hop=100 m=1000 16000": (
+            lambda: T.sdft_hopped(drvh, sd, x[:16000], 100), 1, 0, 0, 1),
         "roundtrip_hopped hop=100 m=1000 8x4000": (
-            lambda: T.roundtrip_hopped(drv, sd, x[:32000].reshape(8, 4000), 100), 8, 0, 0),
+            lambda: T.roundtrip_hopped(drv, sd, x[:32000].reshape(8, 4000), 100), 8, 0, 0, 0),
         "roundtrip_hopped hop=100 m=1000 8x16000": (
-            lambda: T.roundtrip_hopped(drv, sd, x[:128000].reshape(8, 16000), 100), 8, 0, 0),
+            lambda: T.roundtrip_hopped(drv, sd, x[:128000].reshape(8, 16000), 100), 8, 0, 0, 0),
         "roundtrip_hopped hop=4 refresh_every=2 m=1000 4x4000": (
             lambda: T.roundtrip_hopped(drv, sd, x[:16000].reshape(4, 4000), 4,
-                                       refresh_every=2), 4, 0, 0),
+                                       refresh_every=2), 4, 0, 0, 0),
         "roundtrip_hopped hop=1 (K2) m=1000 8x8000": (
-            lambda: T.roundtrip_hopped(drv, sd, x[:64000].reshape(8, 8000), 1), 8, 8, 0),
+            lambda: T.roundtrip_hopped(drv, sd, x[:64000].reshape(8, 8000), 1), 8, 8, 0, 0),
         "roundtrip_hopped hop=1 (K2) m=1000 4x2x2000 refresh_every=2": (
             lambda: T.roundtrip_hopped(drv, sd2, x[:16000].reshape(4, 2, 2000), 1,
-                                       refresh_every=2), 4, 4, 0),
+                                       refresh_every=2), 4, 4, 0, 0),
         "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000": (
-            lambda: T.roundtrip_hopped(drv, sd8, x8, 1), 8, 8, 0),
+            lambda: T.roundtrip_hopped(drv, sd8, x8, 1), 8, 8, 0, 0),
         "roundtrip_block_fused (K2) m=4096 16384": (
-            lambda: Q.roundtrip_block_fused(big, st1, x[:16384]), 1, 1, 0),
+            lambda: Q.roundtrip_block_fused(big, st1, x[:16384]), 1, 1, 0, 0),
         "sdft_hopped hop=100 m=1000 16000": (
-            lambda: T.sdft_hopped(drv, sd, x[:16000], 100), 1, 0, 0),
+            lambda: T.sdft_hopped(drv, sd, x[:16000], 100), 1, 0, 0, 0),
         "roundtrip_hopped_block hop=100 refresh m=1000 16000": (
-            lambda: lti.roundtrip_hopped_block(drv, sd, x[:16000], 100, True), 1, 0, 0),
-        "refresh m=1000": (lambda: T.refresh(drv, sd), 1, 0, 0),
+            lambda: lti.roundtrip_hopped_block(drv, sd, x[:16000], 100, True), 1, 0, 0, 0),
+        "refresh m=1000": (lambda: T.refresh(drv, sd), 1, 0, 0, 0),
     }
 
 
-def graph_path(T, S, Q, dev, card: str, cells: dict) -> dict:
+def graph_path(T, S, Q, M, dev, card: str, cells: dict) -> dict:
     """Part f: every graphed path of ``graph_cells`` against its eager run
     under ``graphs.disabled()`` on the same inputs, bit for bit (parts a-c
     already hold the graphed results against float64, since the graphs are
     the default).  Three calls on one graph: the first call's outputs must
     be unchanged after the next two, which get the same inputs and must
-    return the same outputs.  A cached call must launch its K1 and K2
-    kernels as many times as expected (one K1 launch per ``sdft`` call, one
-    K2 launch per chain block), replays included.  Prints each path's peak
+    return the same outputs.  A cached call must launch its K1, K2 and
+    split_mm kernels as many times as expected (one K1 launch per ``sdft``
+    call, one K2 launch per chain block, one split_mm launch per split
+    product), replays included.  Prints each path's peak
     memory graphed and eager, and each graph's capture time and pool bytes.
     Then the hop=1 chains' profiler traces (no device-to-device copy of a
     block's spectra) and the host synchronisations (``sync_checks``)."""
     from sdft_tpu_torch import graphs
 
     out = {}
-    for label, (call, _, k2, k1) in cells.items():
+    for label, (call, _, k2, k1, ks) in cells.items():
         first = call()
         held = graphs.clone(first)
-        q, s1 = Q.LAUNCHES, S.LAUNCHES
+        q, s1, n = Q.LAUNCHES, S.LAUNCHES, M.LAUNCHES
         second = call()
-        launched, launched1 = Q.LAUNCHES - q, S.LAUNCHES - s1
+        launched, launched1, split = Q.LAUNCHES - q, S.LAUNCHES - s1, M.LAUNCHES - n
         third = call()
         with graphs.disabled():
             eager = call()
@@ -1477,15 +1719,16 @@ def graph_path(T, S, Q, dev, card: str, cells: dict) -> dict:
         print(f"  graphs {label}: graphed vs eager bit for bit {same(first, eager)} "
               f"(largest difference {diff:.3e}); first call's outputs unchanged after two "
               f"more {same(first, held)}; the same inputs again equal "
-              f"{same(second, first) and same(third, first)}; K1, K2 launches per cached "
-              f"call {launched1}, {launched} (expected {k1}, {k2})", flush=True)
+              f"{same(second, first) and same(third, first)}; K1, K2, split_mm launches per "
+              f"cached call {launched1}, {launched}, {split} (expected {k1}, {k2}, {ks})",
+              flush=True)
         if not same(first, eager):
             raise AssertionError(f"graphs {label}: the graphed result differs from eager")
         if not (same(first, held) and same(second, first) and same(third, first)):
             raise AssertionError(f"graphs {label}: a later call changed a held output")
-        if (launched1, launched) != (k1, k2):
-            raise AssertionError(f"graphs {label}: {launched1} K1 and {launched} K2 launches "
-                                 f"counted, expected {k1} and {k2}")
+        if (launched1, launched, split) != (k1, k2, ks):
+            raise AssertionError(f"graphs {label}: {launched1} K1, {launched} K2 and {split} "
+                                 f"split_mm launches counted, expected {k1}, {k2} and {ks}")
         del first, held, second, third, eager
         peaks = {"graphed": peak_gib(call)}
         with graphs.disabled():
@@ -1627,9 +1870,11 @@ GRAPH_TIMED = ("sdft planar f32 m=4096 65536", "sdft planar bf16 m=4096 65536",
                "sdft planar f32 m=4096 8x32768",
                "roundtrip 1x65536 m=4096", "roundtrip 8x32768 m=4096",
                "roundtrip split4 1x65536 m=4096", "roundtrip split4 8x32768 m=4096",
+               "roundtrip high 1x65536 m=4096", "roundtrip high 8x32768 m=4096",
                "roundtrip_hopped hop=100 m=1000 8x4000",
                "roundtrip_hopped hop=100 m=1000 8x16000",
                "roundtrip_hopped split4 hop=100 m=1000 8x16000",
+               "roundtrip_hopped high hop=100 m=1000 8x16000",
                "roundtrip_hopped hop=1 (K2) m=1000 8x8000",
                "roundtrip_hopped hop=1 (K2) m=1000 8x8x8000",
                "roundtrip_block_fused (K2) m=4096 16384")
@@ -1653,7 +1898,7 @@ def graph_timings(T, dev, card: str, cells: dict) -> dict:
 
     res = {}
     for label in GRAPH_TIMED:
-        call, nb, _, _ = cells[label]
+        call, nb = cells[label][:2]
         walls = {"eager": [], "graphed": []}
         for m in ("eager", "graphed", "graphed", "eager"):
             with mode(m):
@@ -2645,24 +2890,29 @@ def cards_main(n: int) -> int:
 
 def print_ptxas(log: pathlib.Path) -> None:
     """ptxas's registers and spills of each K1/K2 instantiation (store
-    form, vector stores, window halo) and of each probe instantiation (body,
+    form, vector stores, window halo), of each probe instantiation (body,
     table inputs, fast; its shared memory is dynamic, csrc/kparts.cu
-    smem_bytes), from the build log, and any performance remark it made."""
+    smem_bytes) and of split_mm's product and split-K kernels (passes),
+    from the build log, and any performance remark it made."""
     import re
 
     from sdft_tpu_torch.kernels import _build
 
     entries, remarks = _build.ptxas_report(log)
-    found = {"spectra": 0, "scan": 0, "kparts": 0}
+    found = {"spectra": 0, "scan": 0, "kparts": 0, "split_mm": 0}
     for name, regs, st, ld, smem in entries:
         k12 = re.match(r"_ZN4sdft\d+(spectra|scan)_kernelILi(\d)ELb(\d)ELi(\d)E", name)
         kp = re.match(r"_ZN6kparts13kparts_kernelILi(\d)ELb(\d)ELb(\d)E", name)
+        sm = re.match(r"_ZN8split_mm\d+(split_mm_kernel|split_mm_reduce)ILi(\d)E", name)
         if k12:
             kind, store, vec, halo = k12.groups()
             label = f"{kind}_kernel<store={store}, vector={vec}, halo={halo}>"
         elif kp:
             kind = "kparts"
             label = "kparts_kernel<body={}, tables={}, fast={}>".format(*kp.groups())
+        elif sm:
+            kind = "split_mm"
+            label = "{}<passes={}>".format(*sm.groups())
         else:
             continue
         found[kind] += 1
@@ -2692,6 +2942,7 @@ def main() -> int:
 
     import sdft_tpu_torch as T
     from sdft_tpu_torch.kernels import _build, kparts as P, scan as Q, spectra as S
+    from sdft_tpu_torch.kernels import split_mm as M
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -2708,9 +2959,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
     P.LAUNCHES.update(make=0, tables=0)
+    M.LAUNCHES = 0
     errs.update(driver_path(T, dev))
     torch.cuda.synchronize()
-    launches.update(kparts_make=P.LAUNCHES["make"], kparts_tables=P.LAUNCHES["tables"])
+    launches.update(kparts_make=P.LAUNCHES["make"], kparts_tables=P.LAUNCHES["tables"],
+                    split_mm=M.LAUNCHES)
     print(f"main path launches: {launches}", flush=True)
     done("parts a and b")
     for name, n in launches.items():
@@ -2728,10 +2981,10 @@ def main() -> int:
         launches[name] += n
     done("part c")
     cells = graph_cells(T, Q, dev)
-    S.LAUNCHES = Q.LAUNCHES = 0
-    graph_peaks = graph_path(T, S, Q, dev, card, cells)
+    S.LAUNCHES = Q.LAUNCHES = M.LAUNCHES = 0
+    graph_peaks = graph_path(T, S, Q, M, dev, card, cells)
     torch.cuda.synchronize()
-    part_f = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+    part_f = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "split_mm": M.LAUNCHES}
     print(f"graphs part launches: {part_f}", flush=True)
     for name, n in part_f.items():
         if n <= 0:
@@ -2778,7 +3031,9 @@ def main() -> int:
 
     vs_plain = kernels_vs_plain(T, S, Q, dev)
     vs_plain.update({f"kparts_{v}": e for v, e in probes_vs_plain(P, dev).items()})
+    vs_plain["split_mm"] = split_mm_vs_plain(dev)
     times = timings(T, S, Q, dev, card)
+    times["split_mm"] = split_mm_timings(dev, card)
     times.update(driver_timings(T, P, dev, card, times["k1_planar_float32"][0]))
     times.update(stream_timings(T, dev, card, times["k1_planar_float32"][0]))
     times["graphs"] = graph_timings(T, dev, card, cells)
@@ -2807,6 +3062,7 @@ def main() -> int:
 
     src = "sdft_tpu_torch/kernels/csrc/"
     k1, k2 = times["k1_planar_float32"], times["k2_packed"]
+    sm = times["split_mm"]["totals 8x32768", 3]
     (b1, bp1, bb1, bby1, bl1, _), (b2, bp2, bb2, bby2) = times["batch"]["k1"], times["batch"]["k2"]
     kernels = [
         {"name": "spectra", "route": "cuda", "source": src + "spectra.cu",
@@ -2837,6 +3093,16 @@ def main() -> int:
          "ms": times["kparts_tables"][0], "plain_ms": times["kparts_tables"][1],
          "bound_ms": times["kparts_tables"][2], "bound_by": times["kparts_tables"][3],
          "library_ms": None},
+        {"name": "split_mm", "route": "cuda", "source": src + "split_mm.cu",
+         "replaces": "sdft_tpu/ops/lti.py:255",
+         "note": "the TPU matrix unit's multi-pass dot (lax.Precision.HIGH, _dot4): no Pallas "
+                 "source; timed at totals 8x32768 with three products",
+         "launches": launches["split_mm"], "max_abs_err": vs_plain["split_mm"][0],
+         "max_err_of_scale": vs_plain["split_mm"][1],
+         "ms": sm[0], "plain_ms": sm[1], "bound_ms": sm[2], "bound_by": sm[3],
+         "library_ms": sm[4],
+         "by_shape": {f"{label} x{n}": [round(v[0], 5), round(v[2], 5)]
+                      for (label, n), v in times["split_mm"].items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -169,10 +169,10 @@ def roundtrip(plan: Plan, state: State, samples, transform=None):
 
     Without a transform the chain is linear time-invariant and runs in its
     collapsed form (``ops.lti.roundtrip_block_lti``): three GEMMs and a
-    prefix over tiles, no spectra in memory (a "split4" plan splits the
-    GEMMs, ``Precision.split4``).  The state it returns is the one
-    ``sdft`` returns (a split4 plan's accumulator up to its split class),
-    so the two forms interleave on one stream.
+    prefix over tiles, no spectra in memory (a "high" or "split4" plan
+    splits the GEMMs, ``Precision.passes``).  The state it returns is the
+    one ``sdft`` returns (a split plan's accumulator up to its split
+    class), so the two forms interleave on one stream.
 
     With a transform, the complex (M, m) [(C, M, m)] spectra are
     materialized, mapped by ``transform`` to the same shape, and

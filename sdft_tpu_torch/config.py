@@ -4,24 +4,33 @@ Time-domain (TD) and frequency-domain (FD) precision are independently
 configurable (reference: c/src/sdft/sdft.h:21-37).  PyTorch has float64 on
 the CPU and on the GPU, so ``resolve()`` is the identity here.
 
-``mxu`` names the float32 matmul class, as in the JAX package:
+``mxu`` names the float32 matmul class, as in the JAX package.  Both split
+classes apply on float32 FD plans only; float64 and float32x2 plans ignore
+them.  A split operand is a pair of masked bf16 halves, hi + lo
+(``kernels.split_mm.split_mask``), and each split product runs on the
+card's bf16 tensor cores with float32 accumulators in one hand-written
+kernel (``kernels.split_mm``), which splits the activations in registers:
 
-  * "highest": true FP32 products (TF32 off) — the class that meets the
-    reference's 1e-7 DFT gate;
-  * "high": TF32 tensor-core products (about 10 mantissa bits);
+  * "highest": true FP32 products, the class that meets the reference's
+    1e-7 DFT gate;
+  * "high": the JAX package's three-pass class (``lax.Precision.HIGH``):
+    the products hh, hl and lh of the split operands, summed in float32 as
+    (hh + hl) + lh, about 16 bits of each operand.  It applies exactly
+    where the JAX package reads ``mxu_precision``: the collapsed round
+    trip's totals and synthesis, the driver's totals, stepped partial
+    totals and synthesis at every hop above 1, ``sdft_hopped``, and the
+    same contractions in each rank of the sharded programs;
   * "split4": the JAX package's throughput mode (``Precision.split4``):
-    in the collapsed round trip, and in the driver's synthesis, both GEMM
-    operands are split into masked bf16 hi + lo halves and the four cross
-    products are summed in float32 (``ops.lti._dot4``).  On the card each
-    product is a bf16 tensor-core GEMM with float32 output, so the operands
-    keep about 16 bits, not TF32's 10 (ROADMAP queue 1, item 5).  Every
-    other matmul of a split4 plan is true FP32, as in the JAX package,
-    whose other programs read split4 as HIGHEST.
+    the four cross products, summed as (hh + hl) + (lh + ll), in the
+    collapsed round trip and in the driver's synthesis only.  Every other
+    matmul of a split4 plan, the sharded programs' included, is true FP32,
+    as the JAX package's other programs read split4 as HIGHEST.
 
-``fp32_matmul`` sets ``torch.backends.cuda.matmul.allow_tf32`` for the
-duration of the port's float32 matmuls, and ``bf16_products`` clears
-``allow_bf16_reduced_precision_reduction`` for split4's bf16 products;
-both restore the caller's value.
+Every other float32 matmul of the port (K1's prologue totals, K2's y, the
+refresh, ``isdft``, the probes) is true FP32 on every plan, as the JAX
+package pins HIGHEST there: ``fp32_matmul`` clears
+``torch.backends.cuda.matmul.allow_tf32`` around them and restores the
+caller's value.  No matmul of the port runs in TF32.
 """
 
 from __future__ import annotations
@@ -76,9 +85,17 @@ class Precision:
         return self.mxu == "split4" and self.fd == "float32"
 
     @property
-    def allow_tf32(self) -> bool:
-        """Whether float32 matmuls may use TF32 ("high" only)."""
-        return self.mxu == "high"
+    def high(self) -> bool:
+        """Whether the contractions where the JAX package reads
+        ``mxu_precision`` take the three-pass split products: "high" on a
+        float32 FD plan."""
+        return self.mxu == "high" and self.fd == "float32"
+
+    @property
+    def passes(self) -> int:
+        """bf16 products per split contraction: 3 for "high", 4 for
+        "split4" (float32 FD plans), 0 where every product is exact FP32."""
+        return 3 if self.high else 4 if self.split4 else 0
 
     @property
     def td_dtype(self) -> torch.dtype:
@@ -94,11 +111,11 @@ class Precision:
 
 
 @contextlib.contextmanager
-def fp32_matmul(precision: Precision):
-    """Run the enclosed float32 matmuls in the plan's class: true FP32 for
-    "highest" and "split4", TF32 for "high".  Restores the caller's flag."""
+def fp32_matmul():
+    """Run the enclosed float32 matmuls as true FP32 (TF32 off), whatever
+    the caller set.  Restores the caller's flag."""
     saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = precision.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
@@ -107,8 +124,10 @@ def fp32_matmul(precision: Precision):
 
 @contextlib.contextmanager
 def bf16_products():
-    """Keep cuBLAS's bf16 GEMMs from reducing in bf16 (split4's products
-    sum in float32).  Restores the caller's flag."""
+    """Keep cuBLAS's bf16 GEMMs from reducing in bf16.  The port runs no
+    cuBLAS bf16 GEMM; ``profiling.cublas_split_mm``, the yardstick
+    chip_smoke.py times ``split_mm`` against (one bf16 GEMM with float32
+    output per product), runs under it.  Restores the caller's flag."""
     saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     try:

@@ -61,8 +61,9 @@ every path runs eagerly on the card (``jax.disable_jit``), the yardstick
 the graphs are held against.
 
 A replay launches the kernels it captured without running their Python
-wrappers, so each graph adds its captured K1/K2 launches to
-``kernels.spectra.LAUNCHES`` and ``kernels.scan.LAUNCHES`` per replay.
+wrappers, so each graph adds its captured K1, K2 and ``split_mm``
+launches to ``kernels.spectra.LAUNCHES``, ``kernels.scan.LAUNCHES`` and
+``kernels.split_mm.LAUNCHES`` per replay.
 """
 
 from __future__ import annotations
@@ -179,9 +180,9 @@ def _rebuild(tree, tensors):
 
 
 def _launch_counters():
-    from .kernels import scan, spectra
+    from .kernels import scan, spectra, split_mm
 
-    return (spectra, scan)
+    return (spectra, scan, split_mm)
 
 
 class Graph:
@@ -300,7 +301,7 @@ class Entry(NamedTuple):
     key: tuple
     capture_s: float      # warm-up and capture, host clock
     pool_bytes: int       # the device's reserved bytes the capture added
-    launches: dict        # K1/K2 launches per replay, by counter
+    launches: dict        # kernel launches per replay, by counter
 
 
 def entries() -> list:

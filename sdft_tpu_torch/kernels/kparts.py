@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import DEFAULT_PRECISION, fp32_matmul
+from ..config import fp32_matmul
 from ..state import require_device
 from ._build import check, library
 
@@ -126,7 +126,7 @@ def _dots(p: Probe, b: torch.Tensor) -> torch.Tensor:
     are exact in f32; the sums run in f32."""
     th = p.thi.float().view(p.nt, p.K, p.K)
     tl = p.tlo.float().view(p.nt, p.K, p.K)
-    with fp32_matmul(DEFAULT_PRECISION):
+    with fp32_matmul():
         return (th @ b + th @ b) + tl @ b
 
 

@@ -69,7 +69,7 @@ def forward_and_y_reference(plan: Plan, pro: Prologue, synth: torch.Tensor,
     written into ``out`` and ``y`` when given, as the kernel does."""
     spectra = reference_spectra(plan, pro)
     s = torch.view_as_complex(synth)
-    with fp32_matmul(plan.precision):
+    with fp32_matmul():
         y_new = spectra.real @ s.real.contiguous()
         if plan.latency != 1.0:
             y_new = y_new - spectra.imag @ s.imag.contiguous()

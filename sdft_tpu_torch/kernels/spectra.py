@@ -201,7 +201,7 @@ def spectra_prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologu
     if nt * K != M:     # each channel's row on its own
         delta = torch.nn.functional.pad(delta, (0, nt * K - M))
 
-    with fp32_matmul(plan.precision):
+    with fp32_matmul():
         s = torch.view_as_complex((delta.view(C * nt, K) @ fine).view(C, nt, m, 2))
     offset = state.offset.reshape(C)
     row = _phase_rows(plan, offset, nt, K, _coarse_rows(plan, K, dev))   # (C, nt, m)

@@ -73,7 +73,7 @@ def refresh_state(plan: Plan, state: State) -> State:
     fd = plan.precision.fd_dtype
     P, _ = fiddle_block(plan, state.offset, 2 * m)
     d = state.delayline.to(fd)
-    with fp32_matmul(plan.precision):
+    with fp32_matmul():
         acc_re = d @ P.real.contiguous()
         acc_im = d @ P.imag.contiguous()
     acc = torch.stack([acc_re, acc_im], dim=-1)

@@ -14,9 +14,9 @@ t*K) and fine[k, i] = T_i^k (exact integer phases), the round trip is
 with the plan constants P, Q (the adjoint of demodulation, Hermitian
 guards, window convolution and synthesis) and GLT = (G o L)^T, L the
 causal mask of the prefix sum inside a tile (``_lti_constants``).  The
-per-sample scan disappears: three GEMMs on cuBLAS (in the plan's float32
-class, ``fp32_matmul``) plus O(nt*m) elementwise work.  Channels fold into
-the GEMM rows.
+per-sample scan disappears: three GEMMs (cuBLAS in exact FP32, or
+``split_mm`` in a split class, below) plus O(nt*m) elementwise work.
+Channels fold into the GEMM rows.
 
 The same carry gives each hop's spectrum when tiles are one hop long: the
 accumulator right after a tile's first sample, demodulated, is
@@ -26,17 +26,23 @@ accumulator right after a tile's first sample, demodulated, is
 block by block in a Python loop; at hop = 1 plans that the kernels take go
 through K2 (``kernels.scan``) instead, straight into the stacked outputs.
 
-A "split4" plan (``Precision.split4``) runs the JAX package's
-throughput mode: the tables are split once on the host into masked bf16
-hi + lo pairs (``_lti_consts_split_device``), the activations in the
-program (``_split_mask``), and each product is the sum of the four cross
-products in float32 (``_dot4``; on the card bf16 tensor-core GEMMs with
-float32 output).  The collapsed round trip splits all three GEMMs, so its
-carried accumulator is of the split class too; the driver
-(``_fused_driver_nd``) splits its synthesis only, and its totals, carry
-and hop spectra equal an exact plan's bit for bit.  As in the JAX package
-the hop=1 K2 chain, K1, ``sdft_hopped``, the refresh, the sharded
-programs and the float32x2 tier take no split products.
+The split classes (``Precision.passes``) take their tables split once on
+the host into masked bf16 hi + lo pairs (``Split``) and each product
+through ``kernels.split_mm``, which splits the activation in registers
+and sums three ("high") or four ("split4") products of the halves in
+float32 (on the CPU its plain version).  A "high" plan splits every
+contraction where the JAX package reads ``mxu_precision``: the
+collapsed round trip's totals and synthesis, the driver's totals,
+stepped partial totals and synthesis, and ``sdft_hopped``'s
+(``_hop_consts_device``, ``_lti_consts_device`` and
+``_stepped_consts_device`` hold split tables for it), also in each rank
+of the sharded programs.  A "split4" plan splits the collapsed round
+trip's three GEMMs (``_lti_consts_split_device``), so its carried
+accumulator is of the split class too, and the driver's synthesis only
+(``_fused_driver_nd``), whose totals, carry and hop spectra equal an
+exact plan's bit for bit.  As in the JAX package the hop=1 K2 chain, K1,
+the refresh and the float32x2 tier take no split products on any plan,
+nor do ``sdft_hopped`` and the sharded programs on a split4 plan.
 
 The scan-free batched driver segment of the JAX package
 (``_driver_segment_nd``, ``segment=True``) is not reachable from the API
@@ -47,16 +53,16 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import graphs
-from ..config import bf16_products, fp32_matmul
+from ..config import fp32_matmul
 from ..cplx import pack
 from ..kernels.scan import _scan
 from ..kernels.spectra import _prefix_tiles, kernel_supported, spectra_prologue
+from ..kernels.split_mm import Split, split_mask, split_mm
 from ..plan import Plan
 from ..state import State, batch_state
 from ..windows import WINDOW_HALO, WINDOW_TAPS
@@ -194,85 +200,67 @@ def _pq_host(plan: Plan, K: int) -> np.ndarray:
     return np.stack([P.T, Q.T], axis=1).reshape(2 * plan.dftsize, K)
 
 
+def _split_host(a: np.ndarray, device) -> Split:
+    """Split a float64 host table, rounded to float32, on the host and
+    move both halves to ``device``.  Splitting an interleaved table gives
+    the halves of re and im split apart."""
+    halves = split_mask(torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32))
+    return Split(*(h.to(device) for h in halves))
+
+
+def _table(plan: Plan, a: np.ndarray, fd: torch.dtype, device):
+    """A host table on ``device``: split for a "high" plan (the JAX
+    package reads ``mxu_precision`` at every contraction these tables
+    enter), else in ``fd``."""
+    return _split_host(a, device) if plan.precision.high else _to_device(a, fd, device)
+
+
 @graphs.cached(maxsize=32)
-def _hop_consts_device(plan: Plan, K: int, fd: torch.dtype,
-                       device: torch.device) -> torch.Tensor:
-    """The fine table of K-sample tiles on ``device`` (``_fine_interleaved``)."""
-    return _to_device(_fine_interleaved(plan, K), fd, device)
+def _hop_consts_device(plan: Plan, K: int, fd: torch.dtype, device: torch.device):
+    """The fine table of K-sample tiles on ``device`` (``_fine_interleaved``,
+    ``_table``)."""
+    return _table(plan, _fine_interleaved(plan, K), fd, device)
 
 
 @graphs.cached(maxsize=32)
 def _lti_consts_device(plan: Plan, K: int, fd: torch.dtype,
                        device: torch.device):
     """(fine, GLT, PQ) of the collapsed round trip on ``device``: fine as
-    ``_hop_consts_device``; GLT (K, K); PQ (2m, K) (``_pq_host``)."""
+    ``_hop_consts_device``; GLT (K, K); PQ (2m, K) (``_pq_host``); each
+    split for a "high" plan (``_table``)."""
     return (_hop_consts_device(plan, K, fd, device),
-            _to_device(_lti_constants(plan, K)[4], fd, device),
-            _to_device(_pq_host(plan, K), fd, device))
-
-
-# -- split4: masked bf16 hi/lo operands, four cross products -------------------
-
-class Split(NamedTuple):
-    """A float32 operand as two bf16 halves, hi + lo (``_split_mask``)."""
-
-    hi: torch.Tensor
-    lo: torch.Tensor
-
-    @property
-    def shape(self) -> torch.Size:
-        return self.hi.shape
-
-
-def _split_mask(a: torch.Tensor) -> Split:
-    """Masked bf16 hi + lo split of float32 ``a`` (counterpart of
-    ``sdft_tpu.ops.lti._split_mask`` and ``_bf16_split_host``): hi is
-    ``a`` with 0x8000 added to its bit pattern and the low half-word
-    masked off, so the dropped half is rounded to nearest and a carry runs
-    into the exponent; lo = (a - hi) rounded to bf16.  Integer operations
-    on an int32 view, not a round trip through bfloat16, give hi."""
-    a = a.to(torch.float32)
-    hi = ((a.view(torch.int32) + 0x8000) & -0x10000).view(torch.float32)
-    return Split(hi.to(torch.bfloat16), (a - hi).to(torch.bfloat16))
-
-
-def _dot4(a: torch.Tensor, b: Split) -> torch.Tensor:
-    """a @ b for float32 ``a`` (rows, K) and a split table ``b`` (K, n):
-    all four cross products of the split operands, summed in float32 as
-    (hh + hl) + (lh + ll) (counterpart of ``sdft_tpu.ops.lti._dot4``).
-
-    On the card each product is a cuBLAS bf16 tensor-core GEMM with
-    float32 output (``aten::mm.dtype``), which raises where the build has
-    none.  On the CPU the plain version multiplies the bf16 halves as
-    float32 tensors: each product of two bf16 values is exact in float32,
-    so both sum the same exact products in float32."""
-    x = _split_mask(a)
-    if a.is_cuda:
-        def d(u, v):
-            return torch.mm(u, v, out_dtype=torch.float32)
-    else:
-        def d(u, v):
-            return u.float() @ v.float()
-    with bf16_products():
-        return (d(x.hi, b.hi) + d(x.hi, b.lo)) + (d(x.lo, b.hi) + d(x.lo, b.lo))
-
-
-def _split_host(a: np.ndarray, device) -> Split:
-    """Split a float64 host table, rounded to float32, on the host and
-    move both halves to ``device``."""
-    halves = _split_mask(torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32))
-    return Split(*(h.to(device) for h in halves))
+            _table(plan, _lti_constants(plan, K)[4], fd, device),
+            _table(plan, _pq_host(plan, K), fd, device))
 
 
 @graphs.cached(maxsize=32)
 def _lti_consts_split_device(plan: Plan, K: int, device: torch.device):
     """(fine, GLT, PQ) of ``_lti_consts_device`` for a split4 plan, each
     a ``Split`` pair on ``device`` (counterpart of
-    ``sdft_tpu.ops.lti._lti_consts_split_device``).  Splitting the
-    interleaved tables gives the halves of re and im split apart."""
+    ``sdft_tpu.ops.lti._lti_consts_split_device``)."""
     return (_split_host(_fine_interleaved(plan, K), device),
             _split_host(_lti_constants(plan, K)[4], device),
             _split_host(_pq_host(plan, K), device))
+
+
+def _mm(plan: Plan, a: torch.Tensor, b) -> torch.Tensor:
+    """a @ b for a contiguous (..., K) activation: by ``split_mm`` in the
+    plan's split class where the table is ``Split``, else in exact FP32."""
+    if isinstance(b, Split):
+        out = split_mm(a.reshape(-1, a.shape[-1]), b, plan.precision.passes)
+        return out.view(*a.shape[:-1], -1)
+    with fp32_matmul():
+        return a @ b
+
+
+def _synthesis_mm(plan: Plan, d: torch.Tensor, GLT, c: torch.Tensor, PQ) -> torch.Tensor:
+    """d @ GLT + c @ PQ for (rows, K) d and (rows, 2m) c: with split tables
+    two ``split_mm`` launches, the second adding its finished sum to the
+    first's output (the plain version's order); else one exact ``addmm``."""
+    if isinstance(PQ, Split):
+        return split_mm(c, PQ, plan.precision.passes, out=split_mm(d, GLT, plan.precision.passes))
+    with fp32_matmul():
+        return torch.addmm(d @ GLT, c, PQ)
 
 
 @graphs.cached(maxsize=32)
@@ -287,7 +275,8 @@ def _stepped_consts_device(plan: Plan, hop: int, sub: int, fd: torch.dtype,
       * sf (K, sub*2m): the inclusive partial fine tables
         sf[k, j, i] = T_i^k * [k <= j*hop] (ROI bins only), (re, im)
         interleaved — one GEMM dt @ sf gives every inner hop's partial
-        totals, the hop-start delta included;
+        totals, the hop-start delta included; split for a "high" plan
+        (``_table``);
       * dr (sub, m) complex: the inner demodulation rows T_i^-(j*hop + 1),
         from exact integer exponents mod 2m.
     """
@@ -304,16 +293,16 @@ def _stepped_consts_device(plan: Plan, hop: int, sub: int, fd: torch.dtype,
     r = (e[:, None] * np.arange(m, dtype=np.int64)[None, :]) % n2
     ang = (-np.pi / m) * r
     cd = torch.complex128 if fd == torch.float64 else torch.complex64
-    return (_to_device(sf.reshape(K, -1), fd, device),
+    return (_table(plan, sf.reshape(K, -1), fd, device),
             _to_device(np.cos(ang) + 1j * np.sin(ang), cd, device))
 
 
 def _fused_driver_consts(plan: Plan, hop: int, sub: int, device):
     """Device constants of the fused driver at tiles of K = hop*sub:
-    (fine, GLT, PQ), plus the stepped tables when sub > 1.  A split4 plan
-    takes the split GLT and PQ of its synthesis and the exact fine table
-    of its totals (the JAX package's (split, exact) pair,
-    sdft_tpu/ops/lti.py:783-796)."""
+    (fine, GLT, PQ), plus the stepped tables when sub > 1.  A "high" plan
+    takes them all split (``_table``); a split4 plan takes the split GLT
+    and PQ of its synthesis and the exact fine table of its totals (the
+    JAX package's (split, exact) pair, sdft_tpu/ops/lti.py:783-796)."""
     fd = plan.precision.fd_dtype
     K = hop * sub
     base = _lti_consts_device(plan, K, fd, device)
@@ -353,8 +342,7 @@ def _carry(plan: Plan, state: State, samples: torch.Tensor, fine):
     """The front shared by every collapsed form, for a batched state and
     (C, M) samples: the comb deltas in tiles of K (the rows of ``fine``),
     the per-tile carry in the demodulated frame and the state after the
-    block.  A ``Split`` fine table (the split4 round trip) takes the
-    totals by ``_dot4``.
+    block.  The totals GEMM runs in the class of ``fine`` (``_mm``).
 
     Returns (dt (C, nt, K) FD real, c0 (C, nt, m) complex, new_state)."""
     m = plan.dftsize
@@ -368,12 +356,7 @@ def _carry(plan: Plan, state: State, samples: torch.Tensor, fine):
     if nt * K != M:  # zero deltas do not perturb the carry
         delta = torch.nn.functional.pad(delta, (0, nt * K - M))
     dt = delta.view(C, nt, K)
-    if isinstance(fine, Split):
-        tot = _dot4(delta.view(C * nt, K), fine)
-    else:
-        with fp32_matmul(plan.precision):
-            tot = dt @ fine
-    totals = torch.view_as_complex(tot.view(C, nt, m, 2))
+    totals = torch.view_as_complex(_mm(plan, dt, fine).view(C, nt, m, 2))
     row0 = _phase_rows(plan, state.offset, nt, K)
     rt = row0 * totals
     acc = torch.view_as_complex(state.accumulator.to(fd).contiguous())
@@ -390,15 +373,11 @@ def _carry(plan: Plan, state: State, samples: torch.Tensor, fine):
 
 def _synthesize(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,
                 M: int) -> torch.Tensor:
-    """y = delta @ GLT + c0_re @ P^T + c0_im @ Q^T: (C, M) in TD precision;
-    by ``_dot4`` where the tables are ``Split``."""
+    """y = delta @ GLT + c0_re @ P^T + c0_im @ Q^T: (C, M) in TD precision
+    (``_synthesis_mm``)."""
     C, nt, K = dt.shape
     d2, c2 = dt.reshape(C * nt, K), torch.view_as_real(c0).reshape(C * nt, -1)
-    if isinstance(PQ, Split):
-        y = _dot4(d2, GLT) + _dot4(c2, PQ)
-    else:
-        with fp32_matmul(plan.precision):
-            y = torch.addmm(d2 @ GLT, c2, PQ)
+    y = _synthesis_mm(plan, d2, GLT, c2, PQ)
     return y.reshape(C, nt * K)[:, :M].to(plan.precision.td_dtype)
 
 
@@ -423,8 +402,7 @@ def _hop_aux(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, stepped, hop: int,
         return (c0 + d0) * phasors(m, bins, 1.0, fd)
     sf, dr = stepped
     sub, nbins = dr.shape
-    with fp32_matmul(plan.precision):
-        pt = torch.view_as_complex((dt @ sf).view(C, nt, sub, nbins, 2))
+    pt = torch.view_as_complex(_mm(plan, dt, sf).view(C, nt, sub, nbins, 2))
     aux = ((c0[:, :, None, :] + pt) * dr).reshape(C, nt * sub, nbins)
     return aux[:, :-(-M // hop)]
 
@@ -470,7 +448,8 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
 
     Returns (new_state, y) with y (M,) / (C, M) in TD precision, equal to
     ``isdft_block(sdft_block(...))`` up to rounding, with the same state
-    (a split4 plan: up to its split class, in y and the accumulator).
+    (a "high" or split4 plan: up to its split class, in y and the
+    accumulator).
     On the card the block replays as one graph (``graphs``).
     """
     M = samples.shape[-1]
@@ -583,7 +562,7 @@ def _refresh_fused(plan: Plan, state: State, fd: torch.dtype) -> State:
     if A * S != dl.shape[-1]:       # 2m not a multiple of S: zero-pad rows
         dl = torch.nn.functional.pad(dl, (0, A * S - dl.shape[-1]))
     dl = dl.reshape(C, A, S)
-    with fp32_matmul(plan.precision):
+    with fp32_matmul():
         p_re = dl @ fS_re
         p_im = dl @ fS_im
     s_re = torch.sum(p_re * c2_re[None] - p_im * c2_im[None], dim=1)

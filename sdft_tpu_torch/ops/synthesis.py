@@ -23,7 +23,7 @@ def isdft_block(plan: Plan, dfts: torch.Tensor) -> torch.Tensor:
     fd = plan.precision.fd_dtype
     tw = synthesis_twiddles(plan, dfts.device)
     re = dfts[..., 0].to(fd)
-    with fp32_matmul(plan.precision):
+    with fp32_matmul():
         y = re @ tw.real.contiguous()
         if plan.latency != 1.0:
             y = y - dfts[..., 1].to(fd) @ tw.imag.contiguous()

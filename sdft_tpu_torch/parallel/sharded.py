@@ -56,10 +56,11 @@ from ..cplx import pack, unpack
 from ..kernels.scan import _scan
 from ..kernels.spectra import (_check_dtype, _prefix_tiles, _spectra, kernel_supported,
                                spectra_prologue)
+from ..kernels.split_mm import Split
 from ..ops.convolve import convolve_padded
-from ..ops.lti import (_hop_aux, _hop_consts_device, _lti_consts_device, _phase_rows,
-                       _refresh_fused, _stepped_consts_device, default_k_tile,
-                       driver_sub_factor)
+from ..ops.lti import (_hop_aux, _hop_consts_device, _lti_consts_device, _mm, _phase_rows,
+                       _refresh_fused, _stepped_consts_device, _synthesis_mm,
+                       default_k_tile, driver_sub_factor)
 from ..ops.twiddle import fiddle_rows, roi_mask, synthesis_twiddles
 from ..plan import Plan
 from ..state import State
@@ -329,7 +330,7 @@ def _inverse_local(plan: Plan, dfts: torch.Tensor, ax: _Axes) -> torch.Tensor:
     fd = plan.precision.fd_dtype
     mb = dfts.shape[-2]
     tw = synthesis_twiddles(plan, dfts.device)[ax.b * mb:(ax.b + 1) * mb]
-    with fp32_matmul(plan.precision):
+    with fp32_matmul():
         y = dfts[..., 0].to(fd) @ tw.real.contiguous()
         if plan.latency != 1.0:
             y = y - dfts[..., 1].to(fd) @ tw.imag.contiguous()
@@ -337,14 +338,25 @@ def _inverse_local(plan: Plan, dfts: torch.Tensor, ax: _Axes) -> torch.Tensor:
     return (y * plan.synthesis_weight).to(plan.precision.td_dtype)
 
 
-def _bin_cols(t: torch.Tensor, b0: int, mb: int, m: int) -> torch.Tensor:
+def _bin_cols(t, b0: int, mb: int, m: int):
     """Columns [b0, b0 + mb) of an (R, ..., m, 2)-interleaved table
-    flattened to (R, X*2m): (R, X*2mb)."""
+    flattened to (R, X*2m): (R, X*2mb), contiguous; of both halves of a
+    ``Split`` table."""
+    if isinstance(t, Split):
+        return t.map(lambda h: _bin_cols(h, b0, mb, m))
     R = t.shape[0]
     return t.view(R, -1, m, 2)[:, :, b0:b0 + mb].reshape(R, -1)
 
 
-def _carry_local(plan: Plan, state: State, samples: torch.Tensor, fine: torch.Tensor,
+def _bin_rows(PQ, b0: int, mb: int):
+    """Rows [2*b0, 2*(b0 + mb)) of the (2m, K) PQ table (or of both halves
+    of a ``Split`` one): the local bins' rows."""
+    if isinstance(PQ, Split):
+        return PQ.map(lambda h: _bin_rows(h, b0, mb))
+    return PQ[2 * b0:2 * (b0 + mb)]
+
+
+def _carry_local(plan: Plan, state: State, samples: torch.Tensor, fine,
                  bins: torch.Tensor, ax: _Axes, m_total: int):
     """The sharded form of ``ops.lti._carry``: the comb deltas in tiles of
     K (the rows of the local ``fine`` columns), each tile's carry in the
@@ -361,8 +373,7 @@ def _carry_local(plan: Plan, state: State, samples: torch.Tensor, fine: torch.Te
     if nt * K != L:  # zero deltas do not perturb the carry
         delta = torch.nn.functional.pad(delta, (0, nt * K - L))
     dt = delta.view(C, nt, K)
-    with fp32_matmul(plan.precision):
-        totals = torch.view_as_complex((dt @ fine).view(C, nt, mb, 2))
+    totals = torch.view_as_complex(_mm(plan, dt, fine).view(C, nt, mb, 2))
     row0 = _phase_rows(plan, state.offset.to(torch.int64) + ax.d * L, nt, K, bins)
     rt = row0 * totals
     dev_prefix, grand = _exclusive_prefix(pack(rt.sum(dim=1)), ax)
@@ -381,9 +392,8 @@ def _synthesize_local(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,
     all_reduce over 'bins' completes the sum.  (C, L) TD samples."""
     C, nt, K = dt.shape
     c0r = torch.view_as_real(c0).reshape(C * nt, -1)
-    with fp32_matmul(plan.precision):
-        y = (torch.addmm(dt.reshape(C * nt, K) @ GLT, c0r, PQ) if ax.b == 0
-             else c0r @ PQ)
+    y = (_synthesis_mm(plan, dt.reshape(C * nt, K), GLT, c0r, PQ) if ax.b == 0
+         else _mm(plan, c0r, PQ))
     y = _all_reduce(y, ax.bins, ax.nb)
     return y.reshape(C, nt * K)[:, :L].to(plan.precision.td_dtype)
 
@@ -410,7 +420,7 @@ def _roundtrip_local_lti(plan: Plan, state: State, samples: torch.Tensor, ax: _A
     b0, mb = _bin_range(plan, ax)
     dt, c0, new_state = _carry_local(plan, state, samples, _bin_cols(fine, b0, mb, m), bins,
                                      ax, m_total)
-    y = _synthesize_local(plan, dt, c0, GLT, PQ[2 * b0:2 * (b0 + mb)], L, ax)
+    y = _synthesize_local(plan, dt, c0, GLT, _bin_rows(PQ, b0, mb), L, ax)
     return new_state, y
 
 
@@ -451,7 +461,7 @@ def _driver_block_local(plan: Plan, state: State, samples: torch.Tensor, consts,
     (fine, GLT, PQ), stepped = consts
     dt, c0, st = _carry_local(plan, state, samples, _bin_cols(fine, b0, mb, m), bins, ax,
                               m_total)
-    y = _synthesize_local(plan, dt, c0, GLT, PQ[2 * b0:2 * (b0 + mb)], L, ax)
+    y = _synthesize_local(plan, dt, c0, GLT, _bin_rows(PQ, b0, mb), L, ax)
     aux = _hop_aux(plan, dt, c0, _local_stepped(stepped, b0, mb, m), hop, L, bins)
     hd = pack(_window(plan, aux, bins, ax))
     if refresh:
@@ -698,8 +708,9 @@ def sharded_roundtrip_hopped(plan: Plan, mesh: DeviceMesh, state: State, blocks,
     ax = _axes(mesh)
     xs = _local(mesh, blocks, (Shard(1), Shard(2), Replicate()))
     st = _local_state(mesh, state)
-    # the exact tables on every plan: the JAX package's sharded programs
-    # read split4 as HIGHEST (sdft_tpu/parallel/sharded.py:638-639)
+    # the exact tables on a split4 plan, as the JAX package's sharded
+    # programs read split4 as HIGHEST (sdft_tpu/parallel/sharded.py:638-639);
+    # split ones on a "high" plan, whose mxu_precision they read
     fd = plan.precision.fd_dtype
     consts = (_lti_consts_device(plan, hop * sub, fd, xs.device),
               _stepped_consts_device(plan, hop, sub, fd, xs.device) if sub > 1 else None)

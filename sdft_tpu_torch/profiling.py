@@ -19,7 +19,11 @@
     bench [m] [block] [runs] [--device D] [--mesh CxTxB]``;
   * :func:`kernel_parts` — drives the probes of K1's parts
     (``kernels.kparts``) on the card and times each;
-    :func:`kernel_part_bounds` — the least time each could take.
+    :func:`kernel_part_bounds` — the least time each could take;
+  * :data:`SPLIT_MM_SHAPES`, :func:`split_mm_bound`, :func:`cublas_split_mm`
+    — the split products' shapes on the main path, the least time each
+    could take, and cuBLAS's bf16 GEMMs summed the same way (the yardstick
+    the kernel is timed against, never called by the port).
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ __all__ = ["trace", "OpCost", "analysis_cost", "synthesis_cost",
            "roundtrip_cost", "benchmark", "benchmark_marginal",
            "device_peaks", "device_time", "wall_time", "bound",
            "scaling_projection", "measure_scaling_proxy", "bench_cli",
-           "bench_mesh_cli", "kernel_parts", "kernel_part_bounds"]
+           "bench_mesh_cli", "kernel_parts", "kernel_part_bounds", "SPLIT_MM_SHAPES",
+           "split_mm_bound", "cublas_split_mm"]
 
 
 @contextlib.contextmanager
@@ -156,6 +161,49 @@ def bound(nbytes: float, f32_flops: float = 0.0, tc_flops: float = 0.0) -> tuple
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (f32_flops / PEAK_F32 + tc_flops / PEAK_BF16_TC) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: (rows, K, N) of each split product on the main path, by where it runs:
+#: the collapsed round trip at m = 4096, k_tile 1024, on 1 x 65536 (64
+#: tile rows) and 8 x 32768 (256); the driver at m = 1000, hop = 100, on a
+#: block of 16000 (160 hop tiles; ``sdft_hopped`` on 64000 samples takes
+#: 640 rows of the totals), and at hop = 4 on 4000 (500 tiles of two hops)
+SPLIT_MM_SHAPES = {
+    "totals 1x65536": (64, 1024, 8192), "GLT 1x65536": (64, 1024, 1024),
+    "PQ 1x65536": (64, 8192, 1024),
+    "totals 8x32768": (256, 1024, 8192), "GLT 8x32768": (256, 1024, 1024),
+    "PQ 8x32768": (256, 8192, 1024),
+    "totals hop=100": (160, 100, 2000), "GLT hop=100": (160, 100, 100),
+    "PQ hop=100": (160, 2000, 100), "totals sdft_hopped": (640, 100, 2000),
+    "totals hop=4": (500, 8, 2000), "stepped hop=4": (500, 8, 4000),
+    "GLT hop=4": (500, 8, 8), "PQ hop=4": (500, 2000, 8),
+}
+
+
+def split_mm_bound(rows: int, K: int, N: int, passes: int, accumulate: bool = False) -> tuple:
+    """``bound`` of one ``kernels.split_mm`` launch: the float32 activation
+    and the two bf16 halves of the table read once, the float32 output
+    written once (and read once with ``accumulate``), against
+    2*rows*K*N*passes bf16 tensor-core operations."""
+    nbytes = 4 * rows * K + 4 * K * N + 4 * rows * N * (2 if accumulate else 1)
+    return bound(nbytes, tc_flops=2.0 * rows * K * N * passes)
+
+
+def cublas_split_mm(a: torch.Tensor, b, passes: int) -> torch.Tensor:
+    """The split class by cuBLAS: ``a`` split by torch ops, one bf16 GEMM
+    with float32 output per product (``aten::mm.dtype``), summed in the
+    kernel's order.  The route the split classes took before the kernel,
+    kept as its yardstick; the port never calls it."""
+    from .config import bf16_products
+    from .kernels.split_mm import split_mask
+
+    x = split_mask(a)
+    with bf16_products():
+        def d(u, v):
+            return torch.mm(u, v, out_dtype=torch.float32)
+
+        hh, hl, lh = d(x.hi, b.hi), d(x.hi, b.lo), d(x.lo, b.hi)
+        return (hh + hl) + (lh + d(x.lo, b.lo)) if passes == 4 else (hh + hl) + lh
 
 
 # -- timing ------------------------------------------------------------------------

@@ -83,6 +83,10 @@ def _f32(T, m, **kw):
     return T.Plan(m, precision=T.Precision("float32", "float32"), **kw)
 
 
+def _high(T, m, **kw):
+    return T.Plan(m, precision=T.Precision("float32", "float32", mxu="high"), **kw)
+
+
 def _init(T, plan, C):
     return T.init_state(plan, channels=C, device="cpu")
 
@@ -109,9 +113,9 @@ def _sdft(window):
     return run
 
 
-def _roundtrip(window):
+def _roundtrip(window, make_plan=_f64):
     def run(T, par, mesh, axes, inp):
-        plan = _f64(T, 32, window=window)
+        plan = make_plan(T, 32, window=window)
         st = _init(T, plan, inp["lti"].shape[0])
         out = {}
         for b, blk in enumerate(_blocks(inp["lti"], 3)):
@@ -137,9 +141,9 @@ def _isdft(latency):
     return run
 
 
-def _hopped(key, m, hop, nblocks, window="hann"):
+def _hopped(key, m, hop, nblocks, window="hann", make_plan=_f64):
     def run(T, par, mesh, axes, inp):
-        plan = _f64(T, m, window=window)
+        plan = make_plan(T, m, window=window)
         x = inp[key]
         st = _init(T, plan, x.shape[0])
         out = {}
@@ -150,9 +154,9 @@ def _hopped(key, m, hop, nblocks, window="hann"):
     return run
 
 
-def _driver(key, hop, refresh_every, window="hann"):
+def _driver(key, hop, refresh_every, window="hann", make_plan=_f64):
     def run(T, par, mesh, axes, inp):
-        plan = _f64(T, 32, window=window)
+        plan = make_plan(T, 32, window=window)
         xs = inp[key]
         st, hd, ys = par.sharded_roundtrip_hopped(plan, mesh, _init(T, plan, xs.shape[1]), xs,
                                                   hop, refresh_every=refresh_every)
@@ -279,6 +283,12 @@ CASES = {
     "kernel_sdft": (_bins1, _kernel_sdft),
     "kernel_roundtrip": (_bins1, _kernel_roundtrip),
     "errors": (None, _errors),
+    # mxu="high" (the three-pass split class), held to the unsharded calls
+    "high_roundtrip": (None, _roundtrip("hann", _high)),
+    "high_hopped": (None, _hopped("hopped", 32, 16, 2, make_plan=_high)),
+    "high_hopped_h4": (None, _hopped("degenerate", 32, 4, 2, make_plan=_high)),
+    "high_driver": (None, _driver("driver", 16, 1, make_plan=_high)),
+    "high_driver_h4": (None, _driver("driver_h4", 4, 1, "hamming", make_plan=_high)),
 }
 
 

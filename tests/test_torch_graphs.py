@@ -90,14 +90,14 @@ def _equal(a, b):
 
 def test_key_separates_what_the_capture_depends_on_and_joins_equal_calls(stub):
     plan = T.Plan(128, window="hann", precision=T.FAST_PRECISION)
-    tf32 = plan.with_(precision=T.Precision("float32", "float32", mxu="high"))
+    high = plan.with_(precision=T.Precision("float32", "float32", mxu="high"))
     st = T.init_state(plan, device="cpu")
     st2 = T.init_state(plan, channels=2, device="cpu")
     x = torch.as_tensor(_signal(512))
     xs = x.reshape(4, 128)
     calls = [
         lambda: lti.roundtrip_block_lti(plan, st, x),
-        lambda: lti.roundtrip_block_lti(tf32, st, x),                 # precision
+        lambda: lti.roundtrip_block_lti(high, st, x),                 # precision
         lambda: lti.roundtrip_block_lti(plan.with_(window="blackman"), st, x),  # plan
         lambda: lti.roundtrip_block_lti(plan, st, x, 16),             # k_tile
         lambda: lti.roundtrip_block_lti(plan, st, x[:500]),           # shape

@@ -57,7 +57,8 @@ def test_plan_from_jax_round_trips_every_field():
     tp = T.plan_from_jax(jp)
     assert (tp.dftsize, tp.window.value, tp.latency, tp.roi) == (250, "blackman", 0.5, (3, 200))
     assert (tp.precision.td, tp.precision.fd, tp.precision.mxu) == ("float32", "float32", "high")
-    assert tp.precision.allow_tf32 and not T.FAST_PRECISION.allow_tf32
+    assert tp.precision.high and tp.precision.passes == 3
+    assert not T.FAST_PRECISION.high and T.FAST_PRECISION.passes == 0
     assert T.Plan(8, roi=(0, 8)).roi is None
     for bad in (dict(dftsize=0), dict(dftsize=3, window="blackman"),
                 dict(dftsize=8, latency=0.0), dict(dftsize=8, roi=(4, 2))):
@@ -66,16 +67,16 @@ def test_plan_from_jax_round_trips_every_field():
 
 
 def test_precision_matmul_flag_is_set_and_restored():
+    """``fp32_matmul`` turns TF32 off whatever the caller set, and puts the
+    caller's value back: no matmul of the port runs in TF32 ("high" is the
+    three-pass split class, not TF32)."""
     saved = torch.backends.cuda.matmul.allow_tf32
     try:
-        torch.backends.cuda.matmul.allow_tf32 = True
-        with fp32_matmul(T.FAST_PRECISION):
-            assert torch.backends.cuda.matmul.allow_tf32 is False
-        with fp32_matmul(T.Precision("float32", "float32", mxu="split4")):
-            assert torch.backends.cuda.matmul.allow_tf32 is False
-        assert torch.backends.cuda.matmul.allow_tf32 is True
-        with fp32_matmul(T.Precision("float32", "float32", mxu="high")):
-            assert torch.backends.cuda.matmul.allow_tf32 is True
+        for before in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = before
+            with fp32_matmul():
+                assert torch.backends.cuda.matmul.allow_tf32 is False
+            assert torch.backends.cuda.matmul.allow_tf32 is before
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert T.Precision().resolve() == T.Precision()

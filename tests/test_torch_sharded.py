@@ -32,6 +32,8 @@ from sdft_tpu import Plan, Precision, init_state
 from sdft_tpu import parallel as jpar
 from sdft_tpu.state import State as JState
 
+import sdft_tpu_torch as T
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "helpers", "torch_sharded_worker.py")
 _spec = importlib.util.spec_from_file_location("torch_sharded_worker", WORKER)
@@ -357,6 +359,49 @@ def test_layout_validation(runs, axes):
     assert set(msg) == set(expect)
     for k, want in expect.items():
         assert (want in msg[k]) if want else msg[k] == "", (k, msg[k])
+
+
+class _Unsharded:
+    """The port's unsharded calls under the sharded programs' names (the
+    mesh ignored): the yardstick of the "high" cases."""
+
+    @staticmethod
+    def sharded_roundtrip(plan, mesh, st, blk):
+        return T.roundtrip(plan, st, torch.as_tensor(blk))
+
+    @staticmethod
+    def sharded_sdft_hopped(plan, mesh, st, blk, hop):
+        return T.sdft_hopped(plan, st, torch.as_tensor(blk), hop)
+
+    @staticmethod
+    def sharded_roundtrip_hopped(plan, mesh, st, xs, hop, refresh_every=1):
+        return T.roundtrip_hopped(plan, st, torch.as_tensor(xs), hop, refresh_every)
+
+
+@pytest.mark.parametrize("axes,name", _pairs(W.MESHES, lambda n: n.startswith("high")))
+def test_high_program_matches_the_unsharded_call(runs, axes, name):
+    """A mxu="high" plan through the sharded round trip, hopped analysis
+    and driver chain (split tables sliced per bin shard, each rank's
+    products by ``split_mm``'s plain version) against the same case run
+    unsharded: offsets and delaylines exactly, samples within the class's
+    1e-4 abs (as the kernel programs' y above), spectra and accumulators
+    within 2e-6 of their scale, as split4 is held to the JAX package
+    (tests/test_torch_split4.py).  The float32 sums run in another order,
+    and an ulp of difference in an activation moves its split by the split
+    class: up to 8.8e-6 on these samples, whose carry is ten times their
+    size."""
+    run = runs(axes)
+    want = W._outputs(T, _Unsharded, None, axes, run.inp, name)
+    assert want
+    for k, w in want.items():
+        got = run.got[f"{name}/{k}"]
+        assert got.shape == w.shape, (k, got.shape, w.shape)
+        if k.endswith(("/offset", "/delayline")):
+            np.testing.assert_array_equal(got, w, err_msg=k)
+        elif re.fullmatch(r"y\d|ys", k):
+            np.testing.assert_allclose(got, w, atol=1e-4, rtol=0, err_msg=k)
+        else:
+            np.testing.assert_allclose(got, w, atol=2e-6 * np.abs(w).max(), rtol=0, err_msg=k)
 
 
 # -- mesh and multihost (tests/test_multihost.py:32-77, torch.distributed mocked) ---

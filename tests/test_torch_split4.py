@@ -5,16 +5,17 @@ A split4 plan splits both GEMM operands into masked bf16 hi + lo halves
 and sums the four cross products in float32: in the collapsed round trip
 (totals and synthesis) and in the driver's synthesis.  The same seeded
 numpy inputs go through ``sdft_tpu`` (CPU, x64) and the port on the CPU,
-where ``ops.lti._dot4`` runs its plain version.
+where ``kernels.split_mm.split_mm`` with four products (the counterpart
+of ``_dot4``) runs its plain version.
 
-Gates: the halves bit for bit; ``_dot4`` within 1e-6 of the output's
+Gates: the halves bit for bit; ``split_mm`` within 1e-6 of the output's
 scale (float32 summation order only); the round trip and the driver's
 samples within 2e-6 of scale of JAX's at the same tile (the activations'
 split turns an ulp of difference in the carry into a difference of the
 split class, about 1e-6 of scale here); against the port's exact plan
 within the JAX test's 1e-3 and not equal; the driver's hop spectra and
 state equal to the exact plan's bit for bit.  The ``-m cuda`` tests hold
-the card's bf16 GEMMs to the plain version and the graphs to eager.
+the card's kernel to the plain version and the graphs to eager.
 """
 
 import contextlib
@@ -30,6 +31,7 @@ import sdft_tpu_torch as T
 from sdft_tpu.ops import lti as j_lti
 from sdft_tpu_torch import graphs
 from sdft_tpu_torch.config import bf16_products
+from sdft_tpu_torch.kernels.split_mm import Split, split_mask, split_mm
 from sdft_tpu_torch.ops import lti
 
 SPLIT4 = J.Precision("float32", "float32", mxu="split4")
@@ -107,7 +109,7 @@ SPLIT_CASES = {
 @pytest.mark.parametrize("case", sorted(SPLIT_CASES))
 @pytest.mark.parametrize("jax_form", ["program", "host"])
 def test_split_mask_equals_jax_bit_for_bit(case, jax_form):
-    """``_split_mask`` against JAX's in-program ``_split_mask`` and its host
+    """``split_mask`` against JAX's in-program ``_split_mask`` and its host
     ``_bf16_split_host``: both halves, every bit.  XLA's CPU runtime
     flushes float32 subnormals (its lo of 0x007FFFFF is -2^-126, the input
     read as zero), so against the program the port runs in the same mode;
@@ -115,7 +117,7 @@ def test_split_mask_equals_jax_bit_for_bit(case, jax_form):
     equals the host split."""
     a = SPLIT_CASES[case]
     with _subnormals(jax_form == "program"):
-        got = lti._split_mask(torch.as_tensor(a))
+        got = split_mask(torch.as_tensor(a))
     with _subnormals(False), np.errstate(over="ignore", invalid="ignore"):
         if jax_form == "program":
             want = j_lti._split_mask(jnp.asarray(a))
@@ -151,7 +153,7 @@ def test_dot4_matches_jax(shape):
     b = rng.standard_normal((K, n))
     bh, bl = j_lti._bf16_split_host(b)
     want = np.asarray(j_lti._dot4(jnp.asarray(a), jnp.asarray(bh), jnp.asarray(bl)))
-    got = lti._dot4(torch.as_tensor(a), lti._split_host(b, "cpu"))
+    got = split_mm(torch.as_tensor(a), lti._split_host(b, "cpu"), 4)
     assert got.dtype == torch.float32
     assert _rel(got, want) <= 1e-6
     # the split class: the product of the split operands, not float32's
@@ -378,14 +380,15 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(256, 1024, 8192), (64, 1024, 1024), (37, 96, 192)])
 def test_cuda_dot4_matches_the_plain_version(cuda_device, shape):
-    """The card's bf16 tensor-core GEMMs against the plain version on the
-    same halves: within 2e-6 of scale (float32 summation order)."""
+    """The card's kernel (bf16 tensor cores, four products) against the
+    plain version on the same halves: within 2e-6 of scale (float32
+    summation order)."""
     rows, K, n = shape
     rng = np.random.default_rng(rows)
     a = torch.as_tensor((rng.standard_normal((rows, K)) * 4).astype(np.float32))
     b = lti._split_host(rng.standard_normal((K, n)), "cpu")
-    want = lti._dot4(a, b)
-    got = lti._dot4(a.to(cuda_device), lti.Split(b.hi.to(cuda_device), b.lo.to(cuda_device)))
+    want = split_mm(a, b, 4)
+    got = split_mm(a.to(cuda_device), Split(b.hi.to(cuda_device), b.lo.to(cuda_device)), 4)
     assert got.dtype == torch.float32
     assert _rel(got.cpu(), want.numpy()) <= 2e-6
 
