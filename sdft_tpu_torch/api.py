@@ -20,6 +20,10 @@ Extended plans (``Precision(fd="float32x2")``) run ``sdft`` and ``isdft``
 in the double-word tier (``ops.twofloat``), as ``sdft_tpu.api`` does; every
 other entry point treats them as float32 (``fd_dtype``) on the ``ops`` path,
 since ``kernel_supported`` takes float32 FD plans only.
+
+Under a profiler ``sdft``, ``sdft_power``, ``roundtrip``,
+``roundtrip_hopped`` and ``refresh`` each lie in a span
+``sdft.api.<entry>`` (``tracing``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .ops.synthesis import isdft_block
 from .ops.twofloat import isdft_block_df, sdft_block_df
 from .plan import Plan
 from .state import State, batch_state, stack_states
+from .tracing import spanned
 
 
 def _samples(state: State, samples, ndims=(1, 2)) -> torch.Tensor:
@@ -72,6 +77,7 @@ def _sdft_ops(plan: Plan, layout: str, spectra_dtype: str | None):
     return run
 
 
+@spanned("sdft.api.sdft")
 def sdft(plan: Plan, state: State, samples, layout: str = "packed",
          spectra_dtype: str | None = None):
     """Forward analysis: one spectrum per input sample.
@@ -106,6 +112,7 @@ def sdft(plan: Plan, state: State, samples, layout: str = "packed",
     return _per_channel(_sdft_ops(plan, layout, spectra_dtype), state, x)
 
 
+@spanned("sdft.api.sdft_power")
 def sdft_power(plan: Plan, state: State, samples,
                spectra_dtype: str | None = None):
     """Forward analysis emitting the power spectrum |dft|^2 per sample:
@@ -156,6 +163,7 @@ def _refresh(plan: Plan, state: State) -> State:
                          for c in range(state.offset.shape[0])])
 
 
+@spanned("sdft.api.refresh")
 def refresh(plan: Plan, state: State) -> State:
     """Exactly rebuild the accumulator from the delayline (drift reset); on
     the card as one graph (``graphs``)."""
@@ -164,6 +172,7 @@ def refresh(plan: Plan, state: State) -> State:
     return _refresh(plan, state)
 
 
+@spanned("sdft.api.roundtrip")
 def roundtrip(plan: Plan, state: State, samples, transform=None):
     """sdft -> [transform ->] isdft round trip of one block.
 
@@ -198,6 +207,7 @@ def roundtrip(plan: Plan, state: State, samples, transform=None):
     return st, isdft_block(plan, pack(z))
 
 
+@spanned("sdft.api.roundtrip_hopped")
 def roundtrip_hopped(plan: Plan, state: State, blocks, hop: int,
                      refresh_every: int | None = 1, k_tile: int | None = None):
     """Chained driver-protocol segment (test/test.c:69-83): the first

@@ -37,11 +37,14 @@ Subcommands, as ``python -m sdft_tpu``'s:
     python -m sdft_tpu_torch trace <logdir> <7 driver args> [flags]
 
 ``bench`` is ``profiling.bench_cli``; ``trace`` runs the driver inside
-``profiling.trace``, which writes a Chrome trace into ``logdir``.
+``profiling.trace``, which writes a Chrome trace into ``logdir`` (the
+port's ``sdft.*`` spans among its events, ``tracing``), then prints
+``{"counters": ...}``, the port's counters (``tracing.counters``).
 """
 
 from __future__ import annotations
 
+import json
 import sys
 import time
 
@@ -76,8 +79,11 @@ def main(argv=None) -> int:
         return bench_cli(argv[1:])
     if argv and argv[0] == "trace" and len(argv) > 1:
         from .profiling import trace
+        from .tracing import counters
         with trace(argv[1]):
-            return main(argv[2:])
+            rc = main(argv[2:])
+        print(json.dumps({"counters": counters()}), flush=True)
+        return rc
     if len(argv) < 7:
         print(__doc__)
         return 1

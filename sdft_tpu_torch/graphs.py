@@ -63,7 +63,14 @@ the graphs are held against.
 A replay launches the kernels it captured without running their Python
 wrappers, so each graph adds its captured K1, K2 and ``split_mm``
 launches to ``kernels.spectra.LAUNCHES``, ``kernels.scan.LAUNCHES`` and
-``kernels.split_mm.LAUNCHES`` per replay.
+``kernels.split_mm.LAUNCHES`` per replay.  ``CAPTURES`` counts the
+graphs captured and ``EVICTIONS`` those the bound evicted: a stream whose
+shapes vary captures and evicts on every call (``tracing.counters``).
+Under a profiler (``tracing``) each replay, with its key, lookup and
+copy-in, lies in a span ``sdft.graphs.replay.<name>``, each warm-up and
+capture in ``sdft.graphs.capture.<name>`` (inside the first replay's span
+when ``replay`` or ``run`` captured it), and ``clone`` in
+``sdft.graphs.clone``.
 """
 
 from __future__ import annotations
@@ -75,6 +82,8 @@ import time
 from typing import NamedTuple
 
 import torch
+
+from .tracing import span
 
 #: graphs kept at once (as the port's ``lru_cache(maxsize=16)`` tables)
 MAX_GRAPHS = 16
@@ -137,6 +146,9 @@ BACKEND = CudaBackend()
 
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
 _DISABLED = 0
+#: graphs captured, and graphs evicted by ``MAX_GRAPHS``, since the start
+CAPTURES = 0
+EVICTIONS = 0
 #: device tables read from a cache by the capture in progress (None outside)
 _HELD: list | None = None
 
@@ -189,8 +201,14 @@ class Graph:
     """One captured function with its static inputs and outputs."""
 
     def __init__(self, name: str, key: tuple, fn, args, mode: str = "global"):
-        global _HELD
         self.name, self.key = name, key
+        self._span = "sdft.graphs.replay." + name
+        with span("sdft.graphs.capture." + name):
+            self._capture(fn, args, mode)
+
+    def _capture(self, fn, args, mode: str) -> None:
+        global _HELD, CAPTURES
+        name, key = self.name, self.key
         inputs = leaves(args)
         device = inputs[0].device
         self._fn = fn                 # its closure holds the tables it read
@@ -215,10 +233,15 @@ class Graph:
         self.pool_bytes = BACKEND.reserved(device) - reserved
         self.capture_s = time.perf_counter() - t0
         self._launches = [(c, n) for c, n in zip(counters, captured) if n]
+        CAPTURES += 1
 
     def __call__(self, *args):
         """Copy ``args`` into the static inputs, replay, and return the
         static outputs (overwritten by the next replay of any graph)."""
+        with span(self._span):
+            return self._replay(args)
+
+    def _replay(self, args):
         for s, t in zip(self._inputs, leaves(args)):
             if t is not s:
                 s.copy_(t)
@@ -267,12 +290,14 @@ def get(name: str, static: tuple, fn, *args, mode: str = "global") -> Graph:
     the capture error mode ``mode`` (``torch.cuda.graph``'s
     ``capture_error_mode``: "thread_local" lets other threads, such as
     NCCL's watchdog, make calls a global capture forbids)."""
+    global EVICTIONS
     key = _key(name, static, leaves(args))
     graph = _GRAPHS.get(key)
     if graph is None:
         graph = _GRAPHS[key] = Graph(name, key, fn, args, mode)
         while len(_GRAPHS) > MAX_GRAPHS:
             _GRAPHS.popitem(last=False)
+            EVICTIONS += 1
     else:
         _GRAPHS.move_to_end(key)
     return graph
@@ -280,13 +305,15 @@ def get(name: str, static: tuple, fn, *args, mode: str = "global") -> Graph:
 
 def clone(tree):
     """``tree`` with every tensor cloned."""
-    return _rebuild(tree, (t.clone() for t in leaves(tree)))
+    with span("sdft.graphs.clone"):
+        return _rebuild(tree, (t.clone() for t in leaves(tree)))
 
 
 def replay(name: str, static: tuple, fn, *args, mode: str = "global"):
     """The static outputs of ``fn``'s graph replayed on ``args``
     (overwritten by the next replay, see above)."""
-    return get(name, static, fn, *args, mode=mode)(*args)
+    with span("sdft.graphs.replay." + name):
+        return get(name, static, fn, *args, mode=mode)._replay(args)
 
 
 def run(name: str, static: tuple, fn, *args, mode: str = "global"):

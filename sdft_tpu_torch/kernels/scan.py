@@ -15,7 +15,8 @@ from launch to launch.  The next accumulator comes from the same prologue.
 On a CPU tensor the wrapper runs the plain version
 (``forward_and_y_reference``); on a CUDA tensor it launches the kernel or
 raises.  ``LAUNCHES`` counts the kernel's launches, a graph's replays
-included (``graphs``).
+included (``graphs``); under a profiler each launch lies in a span
+``sdft.kernels.scan`` (``tracing``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..config import fp32_matmul
 from ..ops.twiddle import synthesis_twiddles
 from ..plan import Plan
 from ..state import State
+from ..tracing import spanned
 from ._build import check, library
 from .spectra import (Prologue, allocate, emit, fill, launch_args, reference_spectra,
                       spectra_prologue, vector_stores)
@@ -84,6 +86,7 @@ def forward_and_y_reference(plan: Plan, pro: Prologue, synth: torch.Tensor,
     return packed, y_new
 
 
+@spanned("sdft.kernels.scan")
 def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
                 layout: str | None = "packed", out=None, y=None):
     """Launch K2 once on the prologue's CUDA tensors, for its whole batch:

@@ -30,7 +30,8 @@ outputs: no spectra buffer is pinned in the graph's pool.
 On a CPU tensor the wrapper runs the kernel's plain PyTorch version
 (``spectra_reference``); on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts the kernel's launches, a graph's replays included
-(``graphs``).
+(``graphs``); under a profiler each launch lies in a span
+``sdft.kernels.spectra`` (``tracing``).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ..ops.convolve import window_convolve
 from ..ops.twiddle import mulmod, phasors, roi_mask
 from ..plan import Plan
 from ..state import State, batch_state
+from ..tracing import spanned
 from ..windows import WINDOW_HALO, WINDOW_TAPS
 from ._build import check, library
 
@@ -366,6 +368,7 @@ def launch_args(plan: Plan, pro: Prologue) -> tuple:
             m, C, pro.M, K, nt, WINDOW_HALO[plan.window], *taps, first, last)
 
 
+@spanned("sdft.kernels.spectra")
 def launch_spectra(plan: Plan, pro: Prologue, form: str = "packed",
                    dtype: str = "float32", out=None):
     """Launch K1 once on the prologue's CUDA tensors, for its whole batch;

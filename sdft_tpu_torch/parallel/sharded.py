@@ -39,6 +39,11 @@ the kernel programs' graph, into outputs the caller owns.  The DTensor
 steps around the body (taking each rank's shard, assembling the outputs)
 stay outside every graph.  On the CPU and inside ``graphs.disabled()`` the
 bodies run eagerly.
+
+Under a profiler (``tracing``) each program's call lies in a span
+``sdft.parallel.<program>``, and in it the DTensor steps in
+``sdft.parallel.in`` (``_shards``) and out ``sdft.parallel.out``
+(``_assemble``).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from ..ops.lti import (_hop_aux, _hop_consts_device, _lti_consts_device, _mm, _p
 from ..ops.twiddle import fiddle_rows, roi_mask, synthesis_twiddles
 from ..plan import Plan
 from ..state import State
+from ..tracing import span, spanned
 from ..windows import WINDOW_HALO
 from .mesh import AXES
 from .multihost import global_array, host_local_to_global, mesh_device
@@ -109,6 +115,22 @@ def _local_state(mesh: DeviceMesh, state: State) -> State:
 def _global_state(mesh: DeviceMesh, state: State) -> State:
     return State(*(host_local_to_global(mesh, p, a.contiguous())
                    for a, p in zip(state, STATE_SPECS)))
+
+
+def _shards(mesh: DeviceMesh, state: State | None, x, placements=SAMPLE_SPEC) -> tuple:
+    """The DTensor steps in: this rank's shards of ``state`` (None: none)
+    and of ``x``."""
+    with span("sdft.parallel.in"):
+        return (None if state is None else _local_state(mesh, state),
+                _local(mesh, x, placements))
+
+
+def _assemble(mesh: DeviceMesh, state: State | None, *outs) -> tuple:
+    """The DTensor steps out: the global ``state`` (None: left out) and each
+    (placements, local tensor) of ``outs`` as a DTensor."""
+    with span("sdft.parallel.out"):
+        glob = tuple(host_local_to_global(mesh, p, t) for p, t in outs)
+        return glob if state is None else (_global_state(mesh, state), *glob)
 
 
 def state_sharding(mesh: DeviceMesh, state: State) -> State:
@@ -549,6 +571,7 @@ def _samples_shape(samples, ndim: int = 2) -> tuple:
     return shape
 
 
+@spanned("sdft.parallel.sharded_sdft")
 def sharded_sdft(plan: Plan, mesh: DeviceMesh, state: State, samples,
                  use_pallas: bool | None = None):
     """Forward analysis over the mesh.
@@ -575,9 +598,9 @@ def sharded_sdft(plan: Plan, mesh: DeviceMesh, state: State, samples,
                       and kernel_supported(plan, M))
     if use_pallas:
         return sharded_sdft_pallas(plan, mesh, state, samples)
-    st, dfts = _forward(plan, _axes(mesh), _local_state(mesh, state),
-                        _local(mesh, samples, SAMPLE_SPEC), M)
-    return _global_state(mesh, st), host_local_to_global(mesh, DFT_SPEC, dfts)
+    st, x = _shards(mesh, state, samples)
+    st, dfts = _forward(plan, _axes(mesh), st, x, M)
+    return _assemble(mesh, st, (DFT_SPEC, dfts))
 
 
 def _forward(plan: Plan, ax: _Axes, state: State, x: torch.Tensor, m_total: int):
@@ -590,15 +613,18 @@ def _inverse(plan: Plan, ax: _Axes, dfts: torch.Tensor) -> torch.Tensor:
                     lambda d: _inverse_local(plan, d, ax), dfts)
 
 
+@spanned("sdft.parallel.sharded_isdft")
 def sharded_isdft(plan: Plan, mesh: DeviceMesh, dfts):
     """Inverse synthesis over the mesh: packed dfts (C, M, m, 2) -> (C, M)
     samples, placed ``SAMPLE_SPEC``."""
     C, M, _, _ = _samples_shape(dfts, 4)
     _check_layout(plan, mesh, C, M)
-    y = _inverse(plan, _axes(mesh), _local(mesh, dfts, DFT_SPEC))
-    return host_local_to_global(mesh, SAMPLE_SPEC, y)
+    _, d = _shards(mesh, None, dfts, DFT_SPEC)
+    y = _inverse(plan, _axes(mesh), d)
+    return _assemble(mesh, None, (SAMPLE_SPEC, y))[0]
 
 
+@spanned("sdft.parallel.sharded_roundtrip")
 def sharded_roundtrip(plan: Plan, mesh: DeviceMesh, state: State, samples,
                       *, collapsed: bool = True, transform=None):
     """Fused analysis + synthesis of one block over the mesh.
@@ -621,8 +647,7 @@ def sharded_roundtrip(plan: Plan, mesh: DeviceMesh, state: State, samples,
     C, M = _samples_shape(samples)
     _check_layout(plan, mesh, C, M)
     ax = _axes(mesh)
-    st = _local_state(mesh, state)
-    x = _local(mesh, samples, SAMPLE_SPEC)
+    st, x = _shards(mesh, state, samples)
     if transform is None and collapsed:
         st, y = _graphed("sharded_roundtrip_lti", ax, (plan, M),
                          lambda s, xx: _roundtrip_local_lti(plan, s, xx, ax, M), st, x)
@@ -643,9 +668,10 @@ def sharded_roundtrip(plan: Plan, mesh: DeviceMesh, state: State, samples,
             raise ValueError(f"transform must preserve the local spectra shape "
                              f"{tuple(z.shape)}, returned {tuple(z2.shape)}")
         y = _inverse(plan, ax, pack(z2))
-    return _global_state(mesh, st), host_local_to_global(mesh, SAMPLE_SPEC, y)
+    return _assemble(mesh, st, (SAMPLE_SPEC, y))
 
 
+@spanned("sdft.parallel.sharded_sdft_hopped")
 def sharded_sdft_hopped(plan: Plan, mesh: DeviceMesh, state: State, samples, hop: int):
     """Hopped forward analysis over the mesh: one spectrum per ``hop``
     samples of the global stream (the reference driver protocol,
@@ -666,10 +692,11 @@ def sharded_sdft_hopped(plan: Plan, mesh: DeviceMesh, state: State, samples, hop
     ax = _axes(mesh)
     st, dfts = _graphed("sharded_hopped", ax, (plan, hop, sub, M),
                         lambda s, x: _hopped_local(plan, s, x, ax, hop, sub, M),
-                        _local_state(mesh, state), _local(mesh, samples, SAMPLE_SPEC))
-    return _global_state(mesh, st), host_local_to_global(mesh, DFT_SPEC, dfts)
+                        *_shards(mesh, state, samples))
+    return _assemble(mesh, st, (DFT_SPEC, dfts))
 
 
+@spanned("sdft.parallel.sharded_roundtrip_hopped")
 def sharded_roundtrip_hopped(plan: Plan, mesh: DeviceMesh, state: State, blocks,
                              hop: int, refresh_every: int | None = 1):
     """The driver protocol over the mesh for a stack of blocks: each block's
@@ -706,8 +733,7 @@ def sharded_roundtrip_hopped(plan: Plan, mesh: DeviceMesh, state: State, blocks,
     if refresh_every not in (None, 1):
         raise ValueError("refresh_every must be None or 1 for the sharded driver chain")
     ax = _axes(mesh)
-    xs = _local(mesh, blocks, (Shard(1), Shard(2), Replicate()))
-    st = _local_state(mesh, state)
+    st, xs = _shards(mesh, state, blocks, (Shard(1), Shard(2), Replicate()))
     # the exact tables on a split4 plan, as the JAX package's sharded
     # programs read split4 as HIGHEST (sdft_tpu/parallel/sharded.py:638-639);
     # split ones on a "high" plan, whose mxu_precision they read
@@ -732,9 +758,10 @@ def sharded_roundtrip_hopped(plan: Plan, mesh: DeviceMesh, state: State, blocks,
         st, hd, y = block(st, xs[b])
         hds[b] = hd
         ys[b] = y
-    return (_global_state(mesh, graphs.clone(st) if graphed else st),
-            host_local_to_global(mesh, (Shard(1), Shard(2), Shard(3)), hds),
-            host_local_to_global(mesh, (Shard(1), Shard(2), Replicate()), ys))
+    if graphed:
+        st = graphs.clone(st)
+    return _assemble(mesh, st, ((Shard(1), Shard(2), Shard(3)), hds),
+                     ((Shard(1), Shard(2), Replicate()), ys))
 
 
 def _check_kernel_program(name: str, plan: Plan, mesh: DeviceMesh, C: int, M: int,
@@ -747,6 +774,7 @@ def _check_kernel_program(name: str, plan: Plan, mesh: DeviceMesh, C: int, M: in
         raise ValueError(f"plan {plan} is not one the kernels take; use sharded_sdft")
 
 
+@spanned("sdft.parallel.sharded_sdft_pallas")
 def sharded_sdft_pallas(plan: Plan, mesh: DeviceMesh, state: State, samples,
                         layout: str = "packed", spectra_dtype: str | None = None):
     """Forward analysis emitting every spectrum over the mesh, through one
@@ -769,16 +797,15 @@ def sharded_sdft_pallas(plan: Plan, mesh: DeviceMesh, state: State, samples,
     if spectra_dtype and layout != "planar":
         raise ValueError("spectra_dtype requires layout='planar'")
     _check_kernel_program("sharded_sdft_pallas", plan, mesh, C, M, spectra_dtype)
-    st, dfts = _forward_local_pallas(plan, _local_state(mesh, state),
-                                     _local(mesh, samples, SAMPLE_SPEC), _axes(mesh), M,
+    st, dfts = _forward_local_pallas(plan, *_shards(mesh, state, samples), _axes(mesh), M,
                                      layout, spectra_dtype, emit_y=False)
     if layout == "planar":
-        out = tuple(host_local_to_global(mesh, SAMPLE_SPEC, p) for p in dfts)
-    else:
-        out = host_local_to_global(mesh, DFT_SPEC, dfts)
-    return _global_state(mesh, st), out
+        st, *out = _assemble(mesh, st, *((SAMPLE_SPEC, p) for p in dfts))
+        return st, tuple(out)
+    return _assemble(mesh, st, (DFT_SPEC, dfts))
 
 
+@spanned("sdft.parallel.sharded_roundtrip_pallas")
 def sharded_roundtrip_pallas(plan: Plan, mesh: DeviceMesh, state: State, samples):
     """The hop=1 driver protocol over the mesh: every sample's spectrum and
     the synthesized samples, through one K2 launch per time shard for all
@@ -789,8 +816,6 @@ def sharded_roundtrip_pallas(plan: Plan, mesh: DeviceMesh, state: State, samples
     sharded (channel, time)."""
     C, M = _samples_shape(samples)
     _check_kernel_program("sharded_roundtrip_pallas", plan, mesh, C, M)
-    st, dfts, ys = _forward_local_pallas(plan, _local_state(mesh, state),
-                                         _local(mesh, samples, SAMPLE_SPEC), _axes(mesh), M,
-                                         "packed", None, emit_y=True)
-    return (_global_state(mesh, st), host_local_to_global(mesh, DFT_SPEC, dfts),
-            host_local_to_global(mesh, SAMPLE_SPEC, ys))
+    st, dfts, ys = _forward_local_pallas(plan, *_shards(mesh, state, samples), _axes(mesh),
+                                         M, "packed", None, emit_y=True)
+    return _assemble(mesh, st, (DFT_SPEC, dfts), (SAMPLE_SPEC, ys))

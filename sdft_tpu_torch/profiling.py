@@ -60,7 +60,8 @@ def trace(logdir: str):
     """Profile everything run in the block (host ops, and the card's
     kernels and copies when there is a card) and write it to ``logdir`` as
     a Chrome trace (``<host>_<pid>.<ms>.pt.trace.json``; open it in
-    Perfetto, chrome://tracing or TensorBoard's profiler).  Yields the
+    Perfetto, chrome://tracing or TensorBoard's profiler), the port's
+    ``sdft.*`` spans among the host's events (``tracing``).  Yields the
     ``torch.profiler.profile``."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 

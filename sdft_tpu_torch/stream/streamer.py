@@ -13,6 +13,13 @@ Checkpoint/resume: the resumable state is (offset, delayline, accumulator)
 plus the stream position; ``checkpoint``/``restore`` use the JAX package's
 ``.npz`` keys, so a checkpoint written by either package's Streamer
 continues the stream in the other.
+
+Under a profiler (``tracing``) the host's steps of a block lie in spans:
+``sdft.stream.upload`` (the block to a tensor on the device; a
+``run_hopped`` group stacked and put there), ``sdft.stream.download``
+(the copy back enqueued and its event recorded) and ``sdft.stream.wait``
+(the host blocked until a block's outputs are numpy), beside the entry's
+own ``sdft.api.*`` span.  No span is open across a ``yield``.
 """
 
 from __future__ import annotations
@@ -32,14 +39,16 @@ from ..cplx import to_numpy
 from ..plan import Plan
 from ..state import (State, init_state, require_device, state_from_arrays,
                      state_to_arrays)
+from ..tracing import span
 
 
 def _wait(y: torch.Tensor, done) -> np.ndarray:
     """The host tensor ``y`` as numpy, once the copy that fills it (recorded
     by the CUDA event ``done``; None on the CPU) has landed."""
-    if done is not None:
-        done.synchronize()
-    return to_numpy(y)
+    with span("sdft.stream.wait"):
+        if done is not None:
+            done.synchronize()
+        return to_numpy(y)
 
 
 class Streamer:
@@ -139,12 +148,15 @@ class Streamer:
         for block in blocks:
             # neither copy syncs the stream: a pageable upload is staged at
             # once, and the copy back lands in a fresh pinned tensor
-            x = torch.as_tensor(to_numpy(block)).to(self.device, non_blocking=True)
-            y = self._step(x, transform, fuse_transform).to("cpu", non_blocking=True)
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+            with span("sdft.stream.upload"):
+                x = torch.as_tensor(to_numpy(block)).to(self.device, non_blocking=True)
+            y = self._step(x, transform, fuse_transform)
+            with span("sdft.stream.download"):
+                y = y.to("cpu", non_blocking=True)
+                done = None
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
             if pending is not None:
                 yield _wait(*pending)           # sync the *previous* block only
             pending = y, done
@@ -174,11 +186,13 @@ class Streamer:
         buf: list = []
 
         def flush():
-            xs = torch.as_tensor(np.stack([to_numpy(b) for b in buf]), device=self.device)
+            with span("sdft.stream.upload"):
+                xs = torch.as_tensor(np.stack([to_numpy(b) for b in buf]), device=self.device)
             self.state, hd, ys = _roundtrip_hopped(
                 self.plan, self.state, xs, hop, refresh_every=self.refresh_every)
             self.samples_processed += xs.shape[0] * xs.shape[-1]
-            hd, ys = to_numpy(hd), to_numpy(ys)
+            with span("sdft.stream.wait"):
+                hd, ys = to_numpy(hd), to_numpy(ys)
             buf.clear()
             for b in range(hd.shape[0]):
                 yield hd[b], ys[b]

@@ -3,6 +3,7 @@ tests/test_torch_sharded.py and tests/test_torch_cli.py.
 
     python tests/helpers/torch_sharded_worker.py CxTxB inputs.npz results.npz
     python tests/helpers/torch_sharded_worker.py CxTxB --graphs results.npz
+    python tests/helpers/torch_sharded_worker.py CxTxB --spans trace.json
     python tests/helpers/torch_sharded_worker.py CxTxB --cli <CLI arguments>
 
 spawns C*T*B ranks (``torch.multiprocessing.spawn``).  Each joins one Gloo
@@ -16,8 +17,11 @@ through the CPU stand-in capture backend (tests/helpers/graph_stub.py:
 each replay runs the rank's body, its Gloo collectives included, again)
 and eagerly (``graphs.disabled()``), on inputs it makes itself, and rank 0
 writes per case whether any output differed on any rank, the graphs
-captured and their capture modes.  The third runs the port's CLI on every
-rank (``--mesh CxTxB --device cpu`` among its arguments).  This module
+captured and their capture modes.  The third runs ``SPANS_CASE`` graphed
+through the stand-in backend under the CPU profiler on every rank, and
+rank 0 exports its Chrome trace (the port's ``sdft.*`` spans among its
+events).  The fourth runs the port's CLI on every rank (``--mesh CxTxB
+--device cpu`` among its arguments).  This module
 imports numpy, torch and sdft_tpu_torch only: the test imports it for the
 inputs and the case list.
 """
@@ -400,6 +404,31 @@ def _graphs_rank(rank: int, axes, init: str, results: str):
     dist.destroy_process_group()
 
 
+#: the case whose spans the third mode traces: a kernel program
+SPANS_CASE = "kernel_sdft"
+
+
+def _spans_rank(rank: int, axes, init: str, results: str):
+    import graph_stub
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import sdft_tpu_torch as T
+    from sdft_tpu_torch import parallel as par
+
+    torch.set_num_threads(1)
+    dist = _join(rank, int(np.prod(axes)), init)
+    mesh = par.make_mesh(*axes, device_type="cpu")
+    inp = make_inputs(axes)
+    with graph_stub.installed():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _outputs(T, par, mesh, axes, inp, SPANS_CASE)
+    if rank == 0:
+        prof.export_chrome_trace(results)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def _cli_rank(rank: int, axes, init: str, args: list):
     import torch
 
@@ -424,6 +453,8 @@ def main(argv) -> int:
             mp.spawn(_cli_rank, args=(axes, init, argv[2:]), nprocs=int(np.prod(axes)))
         elif argv[1] == "--graphs":
             mp.spawn(_graphs_rank, args=(axes, init, argv[2]), nprocs=int(np.prod(axes)))
+        elif argv[1] == "--spans":
+            mp.spawn(_spans_rank, args=(axes, init, argv[2]), nprocs=int(np.prod(axes)))
         else:
             mp.spawn(_cases_rank, args=(axes, init, argv[1], argv[2]), nprocs=int(np.prod(axes)))
     return 0
