@@ -6,20 +6,30 @@ Generalizes the reference's hop-chunked streaming protocol (test/test.c:
 block pipeline.  ``Streamer.run`` is one loop on every device, as in the
 JAX package: it queues block k (upload, round trip, copy back) and only
 then waits for block k-1's copy back and yields it, so on a card block k
-computes while the host hands out block k-1.  Memory is O(block),
-independent of stream length.
+computes while the host hands out block k-1.  ``Streamer.run_hopped``
+does the same a chain of blocks at a time: chain k's outputs are copied
+home on a copy stream of the Streamer's own, into pinned memory, while
+chain k+1 uploads and computes, and chain k's blocks are yielded once
+chain k+1 is queued.  Every copy back lands in a fresh pinned tensor from
+torch's caching host allocator, so a yielded array is never overwritten
+under the caller.  Memory is O(block), independent of stream length.
 
 Checkpoint/resume: the resumable state is (offset, delayline, accumulator)
 plus the stream position; ``checkpoint``/``restore`` use the JAX package's
 ``.npz`` keys, so a checkpoint written by either package's Streamer
-continues the stream in the other.
+continues the stream in the other.  Taken between two yields of ``run``
+or ``run_hopped``, a checkpoint holds the state after the block or chain
+already queued, not after the one just yielded.
 
 Under a profiler (``tracing``) the host's steps of a block lie in spans:
 ``sdft.stream.upload`` (the block to a tensor on the device; a
 ``run_hopped`` group stacked and put there), ``sdft.stream.download``
 (the copy back enqueued and its event recorded) and ``sdft.stream.wait``
-(the host blocked until a block's outputs are numpy), beside the entry's
-own ``sdft.api.*`` span.  No span is open across a ``yield``.
+(the host blocked until a block's or a chain's outputs are numpy),
+beside the entry's own ``sdft.api.*`` span.  No span is open across a
+``yield``.  ``PINNED_COPIES`` counts the chains ``run_hopped`` copied home
+without blocking, ``OVERLAPPED_COPIES`` those whose copy was still in
+flight once the next chain was queued (``tracing.counters``).
 """
 
 from __future__ import annotations
@@ -41,14 +51,38 @@ from ..state import (State, init_state, require_device, state_from_arrays,
                      state_to_arrays)
 from ..tracing import span
 
+PINNED_COPIES = 0
+OVERLAPPED_COPIES = 0
 
-def _wait(y: torch.Tensor, done) -> np.ndarray:
-    """The host tensor ``y`` as numpy, once the copy that fills it (recorded
-    by the CUDA event ``done``; None on the CPU) has landed."""
+
+def _wait(y, done):
+    """The host tensor ``y``, or each of a tuple of them, as numpy, once the
+    copy that fills it (recorded by the CUDA event ``done``; None on the
+    CPU) has landed."""
     with span("sdft.stream.wait"):
         if done is not None:
             done.synchronize()
-        return to_numpy(y)
+        return tuple(map(to_numpy, y)) if isinstance(y, tuple) else to_numpy(y)
+
+
+def _groups(blocks: Iterable, chain: int) -> Iterator[list]:
+    """``blocks`` in lists of ``chain``, the last one shorter if need be."""
+    group: list = []
+    for block in blocks:
+        group.append(block)
+        if len(group) == chain:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def _hopped_blocks(host: tuple, done) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """A queued group's (hop_dfts, samples) per block, once its copy home
+    has landed."""
+    hd, ys = _wait(host, done)
+    for b in range(hd.shape[0]):
+        yield hd[b], ys[b]
 
 
 class Streamer:
@@ -83,6 +117,9 @@ class Streamer:
             lambda d: _isdft(plan, torch.as_tensor(d, device=self.device)))
         self.state: State = init_state(plan, channels, device=self.device)
         self.samples_processed = 0
+        # run_hopped's copies home, beside the stream that computes
+        self._copier = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                        else None)
 
     def _maybe_refresh(self) -> None:
         if self.refresh_every is None:
@@ -178,31 +215,50 @@ class Streamer:
         Yields:
           (hop_dfts, samples) per input block: the packed (M//hop, m, 2)
           first-of-hop spectra and the (M,) synthesized samples, as numpy
-          arrays.
+          arrays.  A group's blocks are yielded once the next group is
+          queued (the last group once the input ends), as ``run`` yields a
+          block; on a card its outputs come home in pinned memory on the
+          Streamer's copy stream meanwhile (module docstring).
 
         The accumulator refresh cadence (``refresh_every``) applies within
         each group, restarting at group boundaries.
         """
-        buf: list = []
+        global OVERLAPPED_COPIES
+        pending = None      # the previous group's host copies and their copy's event
+        for group in _groups(blocks, chain):
+            queued = self._queue_hopped(group, hop)
+            if pending is not None:
+                if pending[1] is not None and not pending[1].query():
+                    OVERLAPPED_COPIES += 1
+                yield from _hopped_blocks(*pending)
+            pending = queued
+        if pending is not None:
+            yield from _hopped_blocks(*pending)
 
-        def flush():
-            with span("sdft.stream.upload"):
-                xs = torch.as_tensor(np.stack([to_numpy(b) for b in buf]), device=self.device)
-            self.state, hd, ys = _roundtrip_hopped(
-                self.plan, self.state, xs, hop, refresh_every=self.refresh_every)
-            self.samples_processed += xs.shape[0] * xs.shape[-1]
-            with span("sdft.stream.wait"):
-                hd, ys = to_numpy(hd), to_numpy(ys)
-            buf.clear()
-            for b in range(hd.shape[0]):
-                yield hd[b], ys[b]
-
-        for block in blocks:
-            buf.append(block)
-            if len(buf) == chain:
-                yield from flush()
-        if buf:
-            yield from flush()
+    def _queue_hopped(self, group: list, hop: int) -> tuple:
+        """Upload a group, run its chain and enqueue its copy home: the
+        (hop_dfts, samples) host tensors and the copy's event (None on the
+        CPU, where the outputs are host tensors already)."""
+        global PINNED_COPIES
+        with span("sdft.stream.upload"):
+            xs = torch.as_tensor(np.stack([to_numpy(b) for b in group]), device=self.device)
+        self.state, hd, ys = _roundtrip_hopped(
+            self.plan, self.state, xs, hop, refresh_every=self.refresh_every)
+        self.samples_processed += xs.shape[0] * xs.shape[-1]
+        with span("sdft.stream.download"):
+            if self._copier is None:
+                return (hd, ys), None
+            self._copier.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._copier):
+                host = hd.to("cpu", non_blocking=True), ys.to("cpu", non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copier)
+            # the caching allocator keeps their memory from the next chain
+            # until the copy is done
+            hd.record_stream(self._copier)
+            ys.record_stream(self._copier)
+            PINNED_COPIES += 1
+            return host, done
 
     # -- checkpoint / resume --------------------------------------------------
 

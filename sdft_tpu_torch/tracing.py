@@ -29,8 +29,11 @@ generator's ``yield``):
     that take this rank's shards and assemble the outputs.
 
 ``counters()`` reads the port's counters: the graphs captured and evicted
-(``graphs.CAPTURES``, ``graphs.EVICTIONS``) and the K1, K2 and
-``split_mm`` launches (each kernel module's ``LAUNCHES``).
+(``graphs.CAPTURES``, ``graphs.EVICTIONS``), the K1, K2 and ``split_mm``
+launches (each kernel module's ``LAUNCHES``), and the chains
+``Streamer.run_hopped`` copied home without blocking and of them those
+still in flight once the next chain was queued (``stream.streamer``'s
+``PINNED_COPIES``, ``OVERLAPPED_COPIES``).
 """
 
 from __future__ import annotations
@@ -66,11 +69,15 @@ def spanned(name: str):
 
 def counters() -> dict:
     """The port's counters since the process started (or a caller reset
-    them): graphs captured and evicted, kernel launches."""
+    them): graphs captured and evicted, kernel launches, the Streamer's
+    pinned and overlapped copies home."""
     from . import graphs
     from .kernels import scan, spectra, split_mm
+    from .stream import streamer
 
     return {"graphs.captures": graphs.CAPTURES, "graphs.evictions": graphs.EVICTIONS,
             "kernels.spectra.launches": spectra.LAUNCHES,
             "kernels.scan.launches": scan.LAUNCHES,
-            "kernels.split_mm.launches": split_mm.LAUNCHES}
+            "kernels.split_mm.launches": split_mm.LAUNCHES,
+            "stream.pinned_copies": streamer.PINNED_COPIES,
+            "stream.overlapped_copies": streamer.OVERLAPPED_COPIES}

@@ -240,6 +240,43 @@ def test_run_hopped_chained_matches_unchained():
         np.testing.assert_allclose(y_g, y_j, atol=TOL)
 
 
+@pytest.mark.parametrize("chain", [1, 3, 16])
+def test_run_hopped_yields_a_chain_once_the_next_is_queued(chain):
+    """run_hopped yields bit for bit what one roundtrip_hopped call a chain
+    gives (7 blocks: the last chain short at 3 and 16), yields chain k's
+    blocks only once chain k+1's blocks were pulled and its samples
+    counted (the last chain once the input ended), and counts every
+    sample."""
+    tp = T.Plan(80, window="hann", precision=T.Precision("float32", "float32"))
+    hop, B, nb = 10, 80, 7
+    xs = (np.random.default_rng(11).standard_normal((nb, 2, B)).clip(-3, 3) / 2
+          ).astype(np.float32)
+    state, want = T.init_state(tp, 2, device="cpu"), []
+    for k in range(0, nb, chain):
+        state, hd, ys = T.roundtrip_hopped(tp, state, torch.as_tensor(xs[k:k + chain]), hop,
+                                           refresh_every=2)
+        want += zip(_np(hd), _np(ys))
+    pulled = 0
+
+    def feed():
+        nonlocal pulled
+        for x in xs:
+            pulled += 1
+            yield x
+
+    s = Streamer(tp, channels=2, refresh_every=2, device="cpu")
+    got = []
+    for i, out in enumerate(s.run_hopped(feed(), hop, chain=chain)):
+        assert pulled == min(nb, (i // chain + 2) * chain), (i, pulled)
+        assert s.samples_processed == pulled * B
+        got.append(out)
+    assert len(got) == nb and s.samples_processed == nb * B
+    for (hd_g, y_g), (hd_w, y_w) in zip(got, want, strict=True):
+        np.testing.assert_array_equal(hd_g, hd_w)
+        np.testing.assert_array_equal(y_g, y_w)
+    np.testing.assert_array_equal(_np(s.state.accumulator), _np(state.accumulator))
+
+
 def test_refresh_cadence_matches_jax():
     """refresh_every rebuilds the accumulator on the same blocks in both
     packages (and restarts at a restore)."""
@@ -288,3 +325,38 @@ def test_run_on_the_card_matches_cpu(channels):
     want = list(Streamer(tp, channels=channels, device="cpu").run(
         iter_blocks(x, 256), transform=lambda d: d * mask.cpu()[:, None]))
     np.testing.assert_allclose(np.concatenate(got, -1), np.concatenate(want, -1), atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_run_hopped_on_the_card_copies_home_pinned():
+    """On the card, run_hopped(hop=100, chain=4) on 8 channels equals one
+    roundtrip_hopped call over the same 10 blocks bit for bit; every chain
+    comes home in pinned memory (``PINNED_COPIES`` counts each), and the
+    arrays yielded two chains earlier still hold their values once the
+    generator has moved on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python -m pytest "
+                    "tests/test_torch_stream.py -m cuda on the card)")
+    from sdft_tpu_torch.stream import streamer
+
+    tp = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+    hop, B, nb, chain = 100, 1600, 10, 4
+    xs = (np.random.default_rng(17).standard_normal((nb, 8, B)).clip(-3, 3) / 3
+          ).astype(np.float32)
+    _, hd, ys = T.roundtrip_hopped(tp, T.init_state(tp, 8), torch.as_tensor(xs, device="cuda"),
+                                   hop, refresh_every=1)
+    hd, ys = hd.cpu().numpy(), ys.cpu().numpy()
+    copies = streamer.PINNED_COPIES
+    gen = Streamer(tp, channels=8, refresh_every=1).run_hopped(iter(xs), hop, chain=chain)
+    got = []
+    for b, (hd_b, y_b) in enumerate(gen):
+        got.append((hd_b, y_b, hd_b.copy(), y_b.copy()))
+        if b >= 2 * chain:      # two chains back: held by the caller alone
+            old = got[b - 2 * chain]
+            np.testing.assert_array_equal(old[0], old[2])
+            np.testing.assert_array_equal(old[1], old[3])
+    assert streamer.PINNED_COPIES - copies == -(-nb // chain)
+    assert len(got) == nb
+    for b, (hd_b, y_b, _, _) in enumerate(got):
+        np.testing.assert_array_equal(hd_b, hd[b])
+        np.testing.assert_array_equal(y_b, ys[b])

@@ -133,8 +133,8 @@ def test_streamer_run_spans(tmp_path, request, graphed):
 
 def test_streamer_run_hopped_spans(tmp_path, stubbed):
     """A ``run_hopped`` group: its upload, the chain's api span with one
-    replay a block inside it, and the wait for its outputs, none open
-    across a yield."""
+    replay a block inside it, its copy home enqueued and the wait for its
+    outputs, none open across a yield."""
     plan = T.Plan(128, window="hann", precision=F32)
     s = T.Streamer(plan, channels=2, refresh_every=1, device="cpu")
     out, spans = _traced(tmp_path, lambda: _pulled(s.run_hopped(_blocks(4), hop=16,
@@ -142,7 +142,8 @@ def test_streamer_run_hopped_spans(tmp_path, stubbed):
     assert len(out) == 4
     ours = _check_pulls(spans)
     names = [s[0] for s in ours]
-    for name in ("sdft.stream.upload", "sdft.api.roundtrip_hopped", "sdft.stream.wait"):
+    for name in ("sdft.stream.upload", "sdft.api.roundtrip_hopped", "sdft.stream.download",
+                 "sdft.stream.wait"):
         assert names.count(name) == 2, (name, names)
     api = [s for s in ours if s[0] == "sdft.api.roundtrip_hopped"]
     replays = [s for s in ours if s[0].startswith("sdft.graphs.replay.")]
@@ -254,7 +255,8 @@ def test_span_records_under_a_profiler(tmp_path):
 def test_counters_keys():
     got = tracing.counters()
     assert list(got) == ["graphs.captures", "graphs.evictions", "kernels.spectra.launches",
-                         "kernels.scan.launches", "kernels.split_mm.launches"]
+                         "kernels.scan.launches", "kernels.split_mm.launches",
+                         "stream.pinned_copies", "stream.overlapped_copies"]
     assert all(isinstance(v, int) and v >= 0 for v in got.values())
 
 
