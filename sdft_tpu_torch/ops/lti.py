@@ -25,6 +25,9 @@ accumulator right after a tile's first sample, demodulated, is
 ``roundtrip_hopped_chain`` runs the driver protocol (test/test.c:69-83)
 block by block in a Python loop; at hop = 1 plans that the kernels take go
 through K2 (``kernels.scan``) instead, straight into the stacked outputs.
+Under a profiler each block of that loop lies in a span
+``sdft.ops.lti.chain_block`` (``tracing``); ``K2_BLOCKS`` and
+``BODY_BLOCKS`` count the blocks it ran on each route.
 
 The split classes (``Precision.passes``) take their tables split once on
 the host into masked bf16 hi + lo pairs (``Split``) and each product
@@ -65,6 +68,7 @@ from ..kernels.spectra import _prefix_tiles, kernel_supported, spectra_prologue
 from ..kernels.split_mm import Split, split_mask, split_mm
 from ..plan import Plan
 from ..state import State, batch_state
+from ..tracing import span
 from ..windows import WINDOW_HALO, WINDOW_TAPS
 from .convolve import window_convolve
 from .twiddle import mulmod, phasors, roi_mask
@@ -76,6 +80,11 @@ K_TILE = 1024
 TABLE_ELEMS = 1 << 22
 #: driver tiles of hops shorter than this many samples span several hops
 DRIVER_TILE_TARGET = 8
+
+#: blocks ``roundtrip_hopped_chain`` ran through K2 (hop = 1 on a plan the
+#: kernels take) and through the driver body (every other chain)
+K2_BLOCKS = 0
+BODY_BLOCKS = 0
 
 
 def _pow2_floor(n: int) -> int:
@@ -625,8 +634,11 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
     launched after each replay straight from the graph's static carries;
     at other hops the whole block, whose outputs are copied into the
     stacked outputs.  A refresh every N > 1 blocks replays a graph of its
-    own (``graphs``).
+    own (``graphs``).  Each block, its refresh included, lies in a span
+    ``sdft.ops.lti.chain_block``; ``K2_BLOCKS`` or ``BODY_BLOCKS`` counts
+    the chain's blocks by the route they took.
     """
+    global K2_BLOCKS, BODY_BLOCKS
     if refresh_every is not None and refresh_every < 1:
         raise ValueError(f"refresh_every must be None or >= 1, got {refresh_every}")
     if hop < 1 or xs.shape[-1] % hop:
@@ -665,17 +677,22 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: torch.Tensor,
         refresh = functools.partial(graphs.replay, "refresh_state_any", (plan,), refresh)
     since = 0
     for b in range(nb):
-        if hop1:
-            pro = block(state, xs[b])
-            _scan(plan, pro, "packed", hds[b], ys[b])
-            state = pro.state
-        else:
-            state, hd, y = block(state, xs[b])
-            if b == 0:
-                hds = hd.new_empty((nb, *hd.shape))
-                ys = y.new_empty((nb, *y.shape))
-            hds[b] = hd
-            ys[b] = y
-        if refresh_every not in (None, 1):
-            state, since = _chain_refresh(refresh, refresh_every, state, since)
+        with span("sdft.ops.lti.chain_block"):
+            if hop1:
+                pro = block(state, xs[b])
+                _scan(plan, pro, "packed", hds[b], ys[b])
+                state = pro.state
+            else:
+                state, hd, y = block(state, xs[b])
+                if b == 0:
+                    hds = hd.new_empty((nb, *hd.shape))
+                    ys = y.new_empty((nb, *y.shape))
+                hds[b] = hd
+                ys[b] = y
+            if refresh_every not in (None, 1):
+                state, since = _chain_refresh(refresh, refresh_every, state, since)
+    if hop1:
+        K2_BLOCKS += nb
+    else:
+        BODY_BLOCKS += nb
     return (graphs.clone(state) if graphed else state), hds, ys

@@ -19,6 +19,10 @@ generator's ``yield``):
     replay and launch bookkeeping; ``sdft.graphs.capture.<graph>``: its
     warm-up and capture; ``sdft.graphs.clone``: the clones of a replay's
     static outputs (``graphs``);
+  * ``sdft.ops.lti.chain_block``: one block of ``roundtrip_hopped_chain``
+    (``api.roundtrip_hopped``): its graph's replay, then K2's wrapper
+    (hop = 1) or the copy into the stacked outputs, and a refresh due
+    after it;
   * ``sdft.kernels.spectra``, ``sdft.kernels.scan``: K1's and K2's launch
     wrappers (checks, output allocation, the launch);
   * ``sdft.stream.upload``, ``.download``, ``.wait``: the ``Streamer``'s
@@ -30,10 +34,12 @@ generator's ``yield``):
 
 ``counters()`` reads the port's counters: the graphs captured and evicted
 (``graphs.CAPTURES``, ``graphs.EVICTIONS``), the K1, K2 and ``split_mm``
-launches (each kernel module's ``LAUNCHES``), and the chains
+launches (each kernel module's ``LAUNCHES``), the chains
 ``Streamer.run_hopped`` copied home without blocking and of them those
 still in flight once the next chain was queued (``stream.streamer``'s
-``PINNED_COPIES``, ``OVERLAPPED_COPIES``).
+``PINNED_COPIES``, ``OVERLAPPED_COPIES``), and the blocks
+``roundtrip_hopped_chain`` ran through K2 and through the driver body
+(``ops.lti``'s ``K2_BLOCKS``, ``BODY_BLOCKS``).
 """
 
 from __future__ import annotations
@@ -70,9 +76,10 @@ def spanned(name: str):
 def counters() -> dict:
     """The port's counters since the process started (or a caller reset
     them): graphs captured and evicted, kernel launches, the Streamer's
-    pinned and overlapped copies home."""
+    pinned and overlapped copies home, the driver chain's blocks by route."""
     from . import graphs
     from .kernels import scan, spectra, split_mm
+    from .ops import lti
     from .stream import streamer
 
     return {"graphs.captures": graphs.CAPTURES, "graphs.evictions": graphs.EVICTIONS,
@@ -80,4 +87,5 @@ def counters() -> dict:
             "kernels.scan.launches": scan.LAUNCHES,
             "kernels.split_mm.launches": split_mm.LAUNCHES,
             "stream.pinned_copies": streamer.PINNED_COPIES,
-            "stream.overlapped_copies": streamer.OVERLAPPED_COPIES}
+            "stream.overlapped_copies": streamer.OVERLAPPED_COPIES,
+            "ops.lti.k2_blocks": lti.K2_BLOCKS, "ops.lti.body_blocks": lti.BODY_BLOCKS}

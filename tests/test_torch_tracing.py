@@ -256,8 +256,67 @@ def test_counters_keys():
     got = tracing.counters()
     assert list(got) == ["graphs.captures", "graphs.evictions", "kernels.spectra.launches",
                          "kernels.scan.launches", "kernels.split_mm.launches",
-                         "stream.pinned_copies", "stream.overlapped_copies"]
+                         "stream.pinned_copies", "stream.overlapped_copies",
+                         "ops.lti.k2_blocks", "ops.lti.body_blocks"]
     assert all(isinstance(v, int) and v >= 0 for v in got.values())
+
+
+def _chain_blocks(n=3, C=2, M=512):
+    return torch.as_tensor(np.stack(_blocks(n, C=C, M=M)))
+
+
+@pytest.mark.parametrize("hop,refresh_every", [(1, 1), (1, 2), (16, 1), (16, 2)])
+def test_chain_block_spans(tmp_path, stubbed, hop, refresh_every):
+    """Under a profiler each block of ``roundtrip_hopped``'s chain lies in
+    one ``sdft.ops.lti.chain_block`` span inside the call's api span,
+    holding that block's graph replay and the refresh due after it; the
+    K2 route (hop 1) and the driver body (hop 16) alike."""
+    plan = T.Plan(128, window="hann", precision=F32)
+    st = T.init_state(plan, channels=2, device="cpu")
+    xs = _chain_blocks()
+    T.roundtrip_hopped(plan, st, xs, hop, refresh_every=refresh_every)     # captures
+    _, spans = _traced(tmp_path, lambda: T.roundtrip_hopped(plan, st, xs, hop,
+                                                            refresh_every=refresh_every))
+    (api,) = [s for s in spans if s[0] == "sdft.api.roundtrip_hopped"]
+    blocks = [s for s in spans if s[0] == "sdft.ops.lti.chain_block"]
+    assert len(blocks) == len(xs) and all(_inside(b, api) for b in blocks)
+    body = "hop1_chain_body" if hop == 1 else "driver_chain_body"
+    for b in blocks:
+        inner = [s[0] for s in spans if s is not b and _inside(s, b)]
+        want = [f"sdft.graphs.replay.{body}"]
+        if refresh_every == 2 and b is blocks[1]:
+            want.append("sdft.graphs.replay.refresh_state_any")
+        assert [n for n in inner if n.startswith("sdft.graphs.replay.")] == want, inner
+
+
+def test_chain_block_span_enters_nothing_without_a_profiler(monkeypatch):
+    """No profiler records: the chain's per-block span enters no record
+    function (monkeypatched to raise) at hop 1 and at other hops."""
+    def refuse(name):
+        raise AssertionError(f"record function entered for {name}")
+
+    monkeypatch.setattr(tracing, "_Record", refuse)
+    plan = T.Plan(128, window="hann", precision=F32)
+    st = T.init_state(plan, channels=2, device="cpu")
+    for hop in (1, 16):
+        _, hd, _ = T.roundtrip_hopped(plan, st, _chain_blocks(), hop)
+        assert hd.shape[:3] == (3, 2, 512 // hop)
+
+
+@pytest.mark.parametrize("hop,m,route", [(1, 128, "k2"), (100, 128, "body"), (1, 64, "body")])
+def test_chain_route_counters(hop, m, route):
+    """``ops.lti.k2_blocks`` counts the blocks of a hop = 1 chain on a plan
+    the kernels take (K2, its plain version here), ``ops.lti.body_blocks``
+    those of any other chain: hop 100, or hop 1 on a plan below the
+    kernels' range."""
+    plan = T.Plan(m, window="hann", precision=F32)
+    st = T.init_state(plan, channels=2, device="cpu")
+    before = tracing.counters()
+    T.roundtrip_hopped(plan, st, _chain_blocks(M=1000), hop)
+    after = tracing.counters()
+    moved = {k: after[k] - before[k] for k in ("ops.lti.k2_blocks", "ops.lti.body_blocks")}
+    assert moved == {"ops.lti.k2_blocks": 3 if route == "k2" else 0,
+                     "ops.lti.body_blocks": 3 if route == "body" else 0}
 
 
 def test_trace_subcommand_prints_the_counters(tmp_path, capsys):
