@@ -2,15 +2,11 @@
 
 Counterpart of ``_launch_spectra_conv`` and ``_kernel_spectra_conv``
 (sdft_tpu/kernels/analysis_pallas.py:781-897, 509-629).  The wrapper runs
-the launcher-side prologue (``_spectra_prologue``, :632-748) in PyTorch:
-
-  * the comb stage: delta[k] = x[k] - x[k-2m] and the next delayline;
-  * the per-tile totals   S_t = delta_tile @ fine            (one FP32 GEMM)
-  * the rotated prefix    c0_t = (acc + sum_{t'<t} row0_t' S_t') conj(row0_t)
-  * the next carry        acc' = acc + sum_t row0_t S_t
-
-with row0_t = T_i^((offset + t*K) mod 2m) and fine[k, i] = T_i^k (ROI bins
-only).  That leaves the kernel (csrc/spectra.cu) a stateless map over tiles:
+the launcher-side prologue (``_spectra_prologue``, :632-748) in PyTorch as
+the carry front of ``ops.carry`` at K = TILE_K with the exact FP32 fine
+table of ``_spectra_tables``: the comb deltas, the per-tile carries c0_t in
+the demodulated frame and the next state.  That leaves the kernel
+(csrc/spectra.cu) a stateless map over tiles:
 each tile's spectra follow from its carry c0_t, its K deltas and the exact
 phase table T_i^k, k = 0..K.  The TPU prologue's padded bin axis and its
 Hermitian fix columns are not needed: the kernel applies both Hermitian
@@ -37,16 +33,15 @@ On a CPU tensor the wrapper runs the kernel's plain PyTorch version
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import graphs
-from ..config import fp32_matmul
+from ..ops.carry import _cumsum_complex, carry
 from ..ops.convolve import window_convolve
-from ..ops.twiddle import mulmod, phasors, roi_mask
+from ..ops.twiddle import roi_mask
 from ..plan import Plan
 from ..state import State, batch_state
 from ..tracing import spanned
@@ -62,8 +57,6 @@ MAX_DFTSIZE = 1 << 19
 #: covers 32 * STRIP bins); the kernels size their grid themselves
 #: (common.cuh: launch_tiles)
 STRIP = 4
-#: rows per group of the two-level prefix sum over tiles
-PREFIX_GROUP = 32
 #: store codes of csrc/common.cuh (enum Store), by (form, element type)
 STORES = {("packed", "float32"): 0, ("planar", "float32"): 1,
           ("planar", "bfloat16"): 2, ("power", "float32"): 3,
@@ -108,55 +101,6 @@ def _spectra_tables(plan: Plan, K: int, device: torch.device):
     return as_dev(fine), as_dev(phase)
 
 
-@graphs.cached(maxsize=16)
-def _coarse_rows(plan: Plan, K: int, device: torch.device) -> torch.Tensor:
-    """C[j, i] = T_i^(j*K mod 2m) for the q distinct coarse exponents
-    (q = period of t*K mod 2m): (q, m) complex64."""
-    m = plan.dftsize
-    n2 = 2 * m
-    q = n2 // math.gcd(K, n2)
-    r = ((np.arange(q)[:, None] * K) * np.arange(m)[None, :]) % n2
-    ang = (-np.pi / m) * r
-    return torch.as_tensor(np.cos(ang) + 1j * np.sin(ang),
-                           dtype=torch.complex64, device=device)
-
-
-def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int,
-                coarse: torch.Tensor) -> torch.Tensor:
-    """row0[..., t, i] = T_i^((offset + t*K) mod 2m) for an offset of shape
-    () or (C,): one exact row per offset times the cached coarse rows
-    (unit-phasor products); (..., nt, m)."""
-    m = plan.dftsize
-    i = torch.arange(m, device=offset.device)
-    o = phasors(m, mulmod(offset[..., None], i, 2 * m), -1.0, torch.float32)
-    q = coarse.shape[0]
-    rows = coarse[:nt] if nt <= q else coarse[torch.arange(nt, device=offset.device) % q]
-    return o[..., None, :] * rows
-
-
-def _cumsum_complex(z: torch.Tensor, dim: int) -> torch.Tensor:
-    """Cumulative sum of a complex tensor along a non-negative ``dim``."""
-    return torch.view_as_complex(torch.cumsum(torch.view_as_real(z), dim=dim))
-
-
-def _prefix_tiles(z: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the rows of (..., nt, m) complex, in two
-    levels: within groups of PREFIX_GROUP rows, then over the group totals.
-    (A one-level scan along rows runs one thread per column.)"""
-    *lead, nt, m = z.shape
-    g = PREFIX_GROUP
-    if nt <= g:
-        return _cumsum_complex(z, z.ndim - 2)
-    ng = -(-nt // g)
-    r = torch.view_as_real(z)
-    if ng * g != nt:
-        r = torch.nn.functional.pad(r, (0, 0, 0, 0, 0, ng * g - nt))
-    inner = torch.cumsum(r.reshape(*lead, ng, g, m, 2), dim=-3)
-    totals = torch.cumsum(inner[..., -1, :, :], dim=-3)
-    inner[..., 1:, :, :, :] += totals[..., :-1, None, :, :]
-    return torch.view_as_complex(inner.reshape(*lead, ng * g, m, 2)[..., :nt, :, :])
-
-
 class Prologue(NamedTuple):
     """Everything the kernels read for a batch of C channels (C = 1 for one
     channel's block), plus the state after the block."""
@@ -185,43 +129,17 @@ def spectra_prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologu
     and of the JAX package's vmap over it).  ``samples`` is (M,) with an
     unbatched state or (C, M) with a batched one; channels may sit at
     different offsets."""
-    m = plan.dftsize
-    n2 = 2 * m
-    K = TILE_K
     if samples.ndim not in (1, 2) or (samples.ndim == 2) != (state.offset.ndim == 1):
         raise ValueError(f"samples {tuple(samples.shape)} need a state batched iff "
                          f"they are (C, M), got offset {tuple(state.offset.shape)}")
-    x = samples.to(torch.float32).reshape(-1, samples.shape[-1])
+    x = samples.reshape(-1, samples.shape[-1])
     C, M = x.shape
-    nt = -(-M // K)
-    dev = samples.device
-    fine, phase = _spectra_tables(plan, K, dev)
-
-    line = torch.cat([state.delayline.to(torch.float32).reshape(C, n2), x], dim=1)
-    delta = x - line[:, :M]
-    new_delayline = line[:, M:].to(plan.precision.td_dtype)
-    if nt * K != M:     # each channel's row on its own
-        delta = torch.nn.functional.pad(delta, (0, nt * K - M))
-
-    with fp32_matmul():
-        s = torch.view_as_complex((delta.view(C * nt, K) @ fine).view(C, nt, m, 2))
-    offset = state.offset.reshape(C)
-    row = _phase_rows(plan, offset, nt, K, _coarse_rows(plan, K, dev))   # (C, nt, m)
-    rt = row * s
-    acc_in = torch.view_as_complex(state.accumulator.to(torch.float32)
-                                   .reshape(C, m, 2).contiguous())
-    # exclusive prefix with the carried accumulator in front:
-    # pre[c, t] = acc[c] + sum_{t' < t} row0_ct' S_ct'
-    pre = _prefix_tiles(torch.cat([acc_in[:, None], rt[:, :-1]], dim=1))
-    c0 = torch.view_as_real(pre * row.conj())
-    new_state = State(
-        offset=torch.remainder(offset + M, n2).to(state.offset.dtype).reshape(
-            state.offset.shape),
-        delayline=new_delayline.reshape(state.delayline.shape),
-        accumulator=torch.view_as_real(pre[:, -1] + rt[:, -1]).to(
-            state.accumulator.dtype).reshape(state.accumulator.shape),
-    )
-    return Prologue(delta, c0, phase, new_state, M)
+    fine, phase = _spectra_tables(plan, TILE_K, samples.device)
+    batched = State(state.offset.reshape(C), state.delayline.reshape(C, -1),
+                    state.accumulator.reshape(C, plan.dftsize, 2))
+    dt, c0, st = carry(plan, batched, x, fine)
+    new_state = State(*(a.reshape(b.shape) for a, b in zip(st, state)))
+    return Prologue(dt.view(C, -1), torch.view_as_real(c0), phase, new_state, M)
 
 
 def prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologue:

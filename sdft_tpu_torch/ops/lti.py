@@ -16,7 +16,8 @@ guards, window convolution and synthesis) and GLT = (G o L)^T, L the
 causal mask of the prefix sum inside a tile (``_lti_constants``).  The
 per-sample scan disappears: three GEMMs (cuBLAS in exact FP32, or
 ``split_mm`` in a split class, below) plus O(nt*m) elementwise work.
-Channels fold into the GEMM rows.
+Channels fold into the GEMM rows.  The comb stage, the totals and the
+prefix are the carry front of ``ops.carry``.
 
 The same carry gives each hop's spectrum when tiles are one hop long: the
 accumulator right after a tile's first sample, demodulated, is
@@ -55,7 +56,6 @@ and is not ported.
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
@@ -64,12 +64,13 @@ from .. import graphs
 from ..config import fp32_matmul
 from ..cplx import pack
 from ..kernels.scan import _scan
-from ..kernels.spectra import _prefix_tiles, kernel_supported, spectra_prologue
+from ..kernels.spectra import kernel_supported, spectra_prologue
 from ..kernels.split_mm import Split, split_mask, split_mm
 from ..plan import Plan
 from ..state import State, batch_state
 from ..tracing import span
 from ..windows import WINDOW_HALO, WINDOW_TAPS
+from .carry import _mm, carry
 from .convolve import window_convolve
 from .twiddle import mulmod, phasors, roi_mask
 
@@ -252,16 +253,6 @@ def _lti_consts_split_device(plan: Plan, K: int, device: torch.device):
             _split_host(_pq_host(plan, K), device))
 
 
-def _mm(plan: Plan, a: torch.Tensor, b) -> torch.Tensor:
-    """a @ b for a contiguous (..., K) activation: by ``split_mm`` in the
-    plan's split class where the table is ``Split``, else in exact FP32."""
-    if isinstance(b, Split):
-        out = split_mm(a.reshape(-1, a.shape[-1]), b, plan.precision.passes)
-        return out.view(*a.shape[:-1], -1)
-    with fp32_matmul():
-        return a @ b
-
-
 def _synthesis_mm(plan: Plan, d: torch.Tensor, GLT, c: torch.Tensor, PQ) -> torch.Tensor:
     """d @ GLT + c @ PQ for (rows, K) d and (rows, 2m) c: with split tables
     two ``split_mm`` launches, the second adding its finished sum to the
@@ -323,62 +314,6 @@ def _fused_driver_consts(plan: Plan, hop: int, sub: int, device):
 
 
 # -- the collapsed forms -----------------------------------------------------------
-
-def _phase_rows(plan: Plan, offset: torch.Tensor, nt: int, K: int,
-                bins: torch.Tensor | None = None):
-    """row0[c, t, i] = T_i^((offset_c + t*K) mod 2m) for t in [0, nt) and
-    the bins i of ``bins`` (default all m): (C, nt, bins) complex in the
-    plan's FD precision.
-
-    The exponents are periodic in t with period p = 2m / gcd(K, 2m), so
-    only min(nt, p) rows of exact integer phases are evaluated and the rest
-    repeat them (same exponent, same float)."""
-    m = plan.dftsize
-    n2 = 2 * m
-    dev = offset.device
-    if bins is None:
-        bins = torch.arange(m, device=dev)
-    q = min(nt, n2 // math.gcd(K, n2))
-    e0 = torch.remainder(offset.to(torch.int64)[:, None]
-                         + torch.arange(q, device=dev)[None, :] * K, n2)
-    rows = phasors(m, mulmod(e0[..., None], bins, n2), -1.0, plan.precision.fd_dtype)
-    if nt > q:
-        rows = rows[:, torch.arange(nt, device=dev) % q]
-    return rows
-
-
-def _carry(plan: Plan, state: State, samples: torch.Tensor, fine):
-    """The front shared by every collapsed form, for a batched state and
-    (C, M) samples: the comb deltas in tiles of K (the rows of ``fine``),
-    the per-tile carry in the demodulated frame and the state after the
-    block.  The totals GEMM runs in the class of ``fine`` (``_mm``).
-
-    Returns (dt (C, nt, K) FD real, c0 (C, nt, m) complex, new_state)."""
-    m = plan.dftsize
-    K = fine.shape[0]
-    td, fd = plan.precision.td_dtype, plan.precision.fd_dtype
-    C, M = samples.shape
-    nt = -(-M // K)
-    x = samples.to(td)
-    line = torch.cat([state.delayline.to(td), x], dim=-1)
-    delta = (x - line[:, :M]).to(fd)
-    if nt * K != M:  # zero deltas do not perturb the carry
-        delta = torch.nn.functional.pad(delta, (0, nt * K - M))
-    dt = delta.view(C, nt, K)
-    totals = torch.view_as_complex(_mm(plan, dt, fine).view(C, nt, m, 2))
-    row0 = _phase_rows(plan, state.offset, nt, K)
-    rt = row0 * totals
-    acc = torch.view_as_complex(state.accumulator.to(fd).contiguous())
-    # exclusive prefix with the carried accumulator in front
-    pre = _prefix_tiles(torch.cat([acc[:, None], rt[:, :-1]], dim=1))
-    new_state = State(
-        offset=torch.remainder(state.offset + M, 2 * m).to(state.offset.dtype),
-        delayline=line[:, M:].contiguous(),
-        accumulator=torch.view_as_real(pre[:, -1] + rt[:, -1]).to(
-            state.accumulator.dtype),
-    )
-    return dt, pre * row0.conj(), new_state
-
 
 def _synthesize(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,
                 M: int) -> torch.Tensor:
@@ -470,7 +405,7 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
                                            samples.device)
 
     def run(st, x):
-        dt, c0, st = _carry(plan, st, x, fine)
+        dt, c0, st = carry(plan, st, x, fine)
         return st, _synthesize(plan, dt, c0, GLT, PQ, M)
 
     return _graphed("roundtrip_block_lti", (plan, K),
@@ -488,7 +423,7 @@ def _fused_driver_nd(plan: Plan, state: State, samples: torch.Tensor, consts,
     Returns (state, hop_dfts (C, ceil(M/hop), m, 2), y (C, M))."""
     (fine, GLT, PQ), stepped = consts
     M = samples.shape[-1]
-    dt, c0, st = _carry(plan, state, samples, fine)
+    dt, c0, st = carry(plan, state, samples, fine)
     y = _synthesize(plan, dt, c0, GLT, PQ, M)
     hd = _hop_spectra(plan, dt, c0, stepped, hop, M)
     if refresh:
@@ -525,7 +460,7 @@ def sdft_hopped(plan: Plan, state: State, samples: torch.Tensor, hop: int):
                if sub > 1 else None)
 
     def run(st, x):
-        dt, c0, st = _carry(plan, st, x, fine)
+        dt, c0, st = carry(plan, st, x, fine)
         return st, _hop_spectra(plan, dt, c0, stepped, hop, M)
 
     return _graphed("sdft_hopped", (plan, hop), lambda st, x: _batched(run, st, x),

@@ -59,13 +59,13 @@ from .. import graphs
 from ..config import fp32_matmul
 from ..cplx import pack, unpack
 from ..kernels.scan import _scan
-from ..kernels.spectra import (_check_dtype, _prefix_tiles, _spectra, kernel_supported,
-                               spectra_prologue)
+from ..kernels.spectra import _check_dtype, _spectra, kernel_supported, spectra_prologue
 from ..kernels.split_mm import Split
+from ..ops.carry import _mm, comb, tile_prefix, tile_totals
 from ..ops.convolve import convolve_padded
-from ..ops.lti import (_hop_aux, _hop_consts_device, _lti_consts_device, _mm, _phase_rows,
-                       _refresh_fused, _stepped_consts_device, _synthesis_mm,
-                       default_k_tile, driver_sub_factor)
+from ..ops.lti import (_hop_aux, _hop_consts_device, _lti_consts_device, _refresh_fused,
+                       _stepped_consts_device, _synthesis_mm, default_k_tile,
+                       driver_sub_factor)
 from ..ops.twiddle import fiddle_rows, roi_mask, synthesis_twiddles
 from ..plan import Plan
 from ..state import State
@@ -299,13 +299,13 @@ def _window(plan: Plan, aux: torch.Tensor, bins: torch.Tensor, ax: _Axes) -> tor
     return out
 
 
-def _comb(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes):
-    """(delta (C, L) in FD precision, next delayline) of this shard."""
+def _comb(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes, K: int = 1):
+    """(deltas (C, nt, K) in FD precision, the stream's next delayline) of
+    this shard in tiles of K (``ops.carry.comb`` after the comb exchange)."""
     td = plan.precision.td_dtype
     x = samples.to(td)
     hist, new_delayline = _comb_history(state.delayline.to(td), x, 2 * plan.dftsize, ax)
-    line = torch.cat([hist, x], dim=-1)
-    return (x - line[:, :x.shape[-1]]).to(plan.precision.fd_dtype), new_delayline
+    return comb(plan, hist, x, K)[0], new_delayline
 
 
 def _next_offset(plan: Plan, state: State, m_total: int) -> torch.Tensor:
@@ -322,12 +322,12 @@ def _forward_local(plan: Plan, state: State, samples: torch.Tensor, ax: _Axes,
     dev = samples.device
     bins = _bins(plan, ax, dev)
     mb = bins.numel()
-    delta, new_delayline = _comb(plan, state, samples, ax)
+    delta, new_delayline = _comb(plan, state, samples, ax)    # (C, L, 1)
 
     # rotation with exact mod-2m phases; bins outside the ROI are never
     # accumulated (c/src/sdft/sdft.h:570)
     e = state.offset.to(torch.int64)[:, None] + ax.d * L + torch.arange(L, device=dev)
-    rot = delta[..., None].to(cd) * fiddle_rows(plan, e, bins=bins).view(C, L, mb)
+    rot = delta.to(cd) * fiddle_rows(plan, e, bins=bins).view(C, L, mb)
     if plan.roi is not None:
         rot = rot * roi_mask(plan, dev, fd)[bins]
     if ax.d == 0:  # the carried accumulator seeds the first time shard
@@ -380,31 +380,22 @@ def _bin_rows(PQ, b0: int, mb: int):
 
 def _carry_local(plan: Plan, state: State, samples: torch.Tensor, fine,
                  bins: torch.Tensor, ax: _Axes, m_total: int):
-    """The sharded form of ``ops.lti._carry``: the comb deltas in tiles of
+    """The sharded carry front (``ops.carry``): the comb deltas in tiles of
     K (the rows of the local ``fine`` columns), each tile's carry in the
     demodulated frame for the local bins, with a two-level prefix (over
     time ranks, then over local tiles), and the state after the block.
 
     Returns (dt (C, nt, K), c0 (C, nt, mb) complex, new_state)."""
-    fd = plan.precision.fd_dtype
-    K = fine.shape[0]
-    mb = bins.numel()
-    C, L = samples.shape
-    nt = -(-L // K)
-    delta, new_delayline = _comb(plan, state, samples, ax)
-    if nt * K != L:  # zero deltas do not perturb the carry
-        delta = torch.nn.functional.pad(delta, (0, nt * K - L))
-    dt = delta.view(C, nt, K)
-    totals = torch.view_as_complex(_mm(plan, dt, fine).view(C, nt, mb, 2))
-    row0 = _phase_rows(plan, state.offset.to(torch.int64) + ax.d * L, nt, K, bins)
-    rt = row0 * totals
+    L = samples.shape[-1]
+    dt, new_delayline = _comb(plan, state, samples, ax, fine.shape[0])
+    rt, row0 = tile_totals(plan, dt, fine, state.offset.to(torch.int64) + ax.d * L, bins)
     dev_prefix, grand = _exclusive_prefix(pack(rt.sum(dim=1)), ax)
-    acc = state.accumulator.to(fd)
-    pre = _prefix_tiles(torch.cat([unpack(acc + dev_prefix)[:, None], rt[:, :-1]], dim=1))
+    acc = state.accumulator.to(plan.precision.fd_dtype)
+    c0, _ = tile_prefix(unpack(acc + dev_prefix), rt, row0)
     new_state = State(offset=_next_offset(plan, state, m_total),
                       delayline=new_delayline,
                       accumulator=(acc + grand).to(state.accumulator.dtype))
-    return dt, pre * row0.conj(), new_state
+    return dt, c0, new_state
 
 
 def _synthesize_local(plan: Plan, dt: torch.Tensor, c0: torch.Tensor, GLT, PQ,

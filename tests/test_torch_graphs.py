@@ -247,20 +247,18 @@ def test_graphed_tables_are_held_past_a_cache_eviction(stub):
 
 
 def test_graphed_prologue_holds_its_tables_past_a_cache_eviction(stub):
-    """The prologue graph holds the phase and coarse tables it read, and
+    """The prologue graph holds the fine and phase tables it read, and
     hands the cached phase table to the kernel as its static output."""
     plan = T.Plan(256, window="hann", precision=T.FAST_PRECISION)
     st = T.init_state(plan, device="cpu")
     x = torch.as_tensor(_signal(2000, seed=2))
     first = T.sdft(plan, st, x)
     (graph,) = graphs._GRAPHS.values()
-    _, phase = spectra._spectra_tables(plan, spectra.TILE_K, x.device)
-    coarse = spectra._coarse_rows(plan, spectra.TILE_K, x.device)
+    fine, phase = spectra._spectra_tables(plan, spectra.TILE_K, x.device)
     held = graphs.leaves(graph._held)
-    assert any(t is phase for t in held) and any(t is coarse for t in held)
+    assert any(t is phase for t in held) and any(t is fine for t in held)
     assert graph.outputs.phase is phase
     spectra._spectra_tables.cache_clear()
-    spectra._coarse_rows.cache_clear()
     assert spectra._spectra_tables(plan, spectra.TILE_K, x.device)[1] is not phase
     assert _equal(T.sdft(plan, st, x), first) and graph.outputs.phase is phase
 

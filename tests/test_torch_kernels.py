@@ -25,6 +25,7 @@ from sdft_tpu.kernels import roundtrip_block_fused as j_roundtrip_block_fused
 from sdft_tpu.ops.lti import _chain_hop1_pallas_jit
 from sdft_tpu_torch import graphs
 from sdft_tpu_torch.kernels import _build, scan, spectra
+from sdft_tpu_torch.ops import carry, lti
 from sdft_tpu_torch.state import State, batch_state, stack_states
 
 F32 = J.FAST_PRECISION
@@ -122,8 +123,34 @@ def test_library_path_tracks_the_sources():
 def test_prologue_prefix_over_tiles_matches_a_sequential_sum(nt):
     rng = np.random.default_rng(nt)
     z = rng.standard_normal((nt, 9)) + 1j * rng.standard_normal((nt, 9))
-    got = spectra._prefix_tiles(torch.as_tensor(z, dtype=torch.complex128))
+    got = carry._prefix_tiles(torch.as_tensor(z, dtype=torch.complex128))
     np.testing.assert_allclose(got.numpy(), np.cumsum(z, axis=0), rtol=0, atol=1e-12)
+
+
+def test_prologue_at_an_odd_dftsize_builds_no_table_of_m_rows():
+    """At odd m the tile phase rows T_i^(t*K) have a period of m tiles: a
+    256-sample block (2 tiles) at m = 8191 evaluates two of them, so the
+    prologue's host allocations stay far below one m x m table (537 MB in
+    complex64), and its carries equal the ops path's carry front
+    (``ops.lti``'s fine table of K = 128) at the f32 class."""
+    import tracemalloc
+
+    _, tp = _plans(8191, window="hann")
+    x = torch.as_tensor(_signal(256, seed=2))
+    tracemalloc.start()
+    try:
+        st, _ = T.sdft(tp, T.init_state(tp, device="cpu"), torch.as_tensor(_signal(77, 1)))
+        pro = spectra.spectra_prologue(tp, st, x)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 64 << 20, peak
+    fine = lti._hop_consts_device(tp, spectra.TILE_K, torch.float32, x.device)
+    _, c0, want = carry.carry(tp, State(*(a[None] for a in st)), x[None], fine)
+    bound = 4 * np.finfo(np.float32).eps * (77 + 256)
+    np.testing.assert_allclose(pro.c0.numpy(), torch.view_as_real(c0).numpy(), rtol=0, atol=bound)
+    np.testing.assert_allclose(pro.state.accumulator.numpy(), want.accumulator[0].numpy(),
+                               rtol=0, atol=bound)
 
 
 def test_long_block_prologue_matches_the_ops_path():
@@ -355,12 +382,14 @@ def test_channel_batch_roundtrip_transform_matches_jax_vmapped():
 # -- the channel axis: one prologue and one launch per (C, M) batch ----------------
 
 #: (m, window, roi, M): a ragged M (no multiple of K = 128), each window halo,
-#: ROIs, and a block of 40 tiles (the two-level prefix over tiles)
+#: ROIs, a block of 40 tiles (the two-level prefix over tiles) and an odd m
+#: (tile phase rows of period m tiles)
 CHANNEL_CASES = [
     (256, "boxcar", None, 300),
     (250, "hann", (3, 240), 129),
     (256, "blackman", (0, 100), 4 * 128 + 37),
     (128, "hann", None, 40 * 128 - 3),
+    (8191, "hann", None, 256),
 ]
 
 
@@ -515,7 +544,8 @@ def test_one_channel_batch_equals_the_unbatched_call_bit_for_bit(call):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,window,roi,M", [(256, "boxcar", None, 300),
-                                            (1000, "blackman", (3, 900), 4000)])
+                                            (1000, "blackman", (3, 900), 4000),
+                                            (8191, "hann", None, 256)])
 def test_cuda_kernels_match_plain_versions(cuda_device, m, window, roi, M):
     tp = T.Plan(m, window=window, roi=roi, latency=0.5, precision=T.FAST_PRECISION)
     st, _ = T.sdft(tp, T.init_state(tp, device=cuda_device),

@@ -15,7 +15,7 @@ import torch
 import sdft_tpu as J
 import sdft_tpu_torch as T
 from sdft_tpu.ops import lti as j_lti
-from sdft_tpu_torch.ops import lti
+from sdft_tpu_torch.ops import carry, lti
 
 F64 = J.Precision("float64", "float64")
 
@@ -282,7 +282,7 @@ def test_phase_rows_exact_at_a_large_dftsize():
     tp = T.Plan(m, precision=T.Precision("float64", "float64"))
     jp = J.Plan(m, precision=F64)
     off = np.array([0, 99_991, 2 * m - 1])
-    got = lti._phase_rows(tp, torch.as_tensor(off), 5, 777)
+    got = carry.phase_rows(tp, torch.as_tensor(off), 5, 777)
     want_re, want_im = j_lti._phase_rows(jnp.asarray(off, jnp.int32), 5, 777, m,
                                          jnp.float64)
     _close(got.real, want_re, 1e-13)
