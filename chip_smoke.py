@@ -24,11 +24,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                ``isdft`` and ``roundtrip`` with a low-pass transform;
                a ragged (3, 8229) channel batch at m = 4096, channels at
                different offsets, through ``sdft`` (packed, planar bf16),
-               ``sdft_power`` and ``roundtrip(transform)``, each call one
-               K1 launch, against float64 and the per-channel calls;
+               ``sdft_power`` and ``roundtrip(transform)``, each cached
+               call one K1 launch and one carry launch (its prologue's
+               graph replayed), against
+               float64 and the per-channel calls;
                ``roundtrip_hopped(hop=1)`` at m = 1000 over 4 blocks of
                8000 samples, and over 2 blocks of 2 channels x 4000 (one
-               K2 launch per block).  K1 and K2 must have been launched;
+               K2 and one carry launch per block).  K1, K2 and the carry
+               kernel must have been launched;
      b. driver ``roundtrip`` without a transform (the collapsed LTI form)
                at the flagship size; with ``mxu="split4"`` at m = 4096 on
                1 x 65536 and 8 x 32768 (within 5e-4 of float64, unequal
@@ -66,7 +69,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
                4096 on two chained blocks of 8192; ``SDFT`` on the card
                against the CPU; ``STFT`` against numpy framing and
                ``np.fft.rfft``, and its WOLA interior.  K1 and K2 must
-               have been launched;
+               have been launched, and the carry kernel;
      d. sharded the seven programs of ``sdft_tpu_torch.parallel`` on a
                one-rank NCCL mesh (1x1x1) of a process group of their own:
                ``sharded_sdft_pallas`` (one K1 launch per time shard) at
@@ -90,7 +93,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
                ``sharded_roundtrip_hopped`` block under
                ``set_sync_debug_mode("error")``.  K1 must have been
                launched by ``sharded_sdft_pallas`` and K2 by
-               ``sharded_roundtrip_pallas``;
+               ``sharded_roundtrip_pallas``, and the carry kernel;
      e. tools  ``bench --mesh 1x1x1`` inside part d's group (its JSON line,
                value > 0); ``bench 4096 16384 3`` (both rows positive, the
                scan-form row through K2, every roofline share <= 1.05);
@@ -99,8 +102,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                untraced run's bit for bit); each ``examples/*_torch.py`` on
                the card (``analysis_torch`` through K1); and
                ``scripts/crosscheck_torch.py`` at m = 1000, hop = 100,
-               --fd32 against the native oracle, in a subprocess.  K1 and
-               K2 must have been launched;
+               --fd32 against the native oracle, in a subprocess.  K1, K2
+               and the carry kernel must have been launched;
      f. graphs every graphed path (``sdft_tpu_torch.graphs``: ``sdft``
                in every K1 store form at m = 4096 (planar f32 and bf16 on
                65536, the 8 x 32768 batch, packed f32 and both power forms
@@ -121,8 +124,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (one K2 kernel per block, no device-to-device copy as large
                as a block's spectra); a warm graphed ``sdft`` and chain
                block under ``set_sync_debug_mode("error")``, and the
-               synchronising calls of an eager ``sdft`` ("warn").  K1, K2
-               and split_mm must have been launched.  (Parts a-e run the
+               synchronising calls of an eager ``sdft`` ("warn").  K1, K2,
+               split_mm and the carry kernel must have been launched.  (Parts a-e run the
                graphs too: they are the default on the card.)
      Every result is held against the float64 ``ops`` path on the card;
   4. kernels   each kernel against its plain PyTorch version on the same
@@ -134,7 +137,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                does not divide; split_mm at every shape of the main path
                (``profiling.SPLIT_MM_SHAPES``) with three and four
                products, within 2e-6 of scale, ``out`` accumulated bit for
-               bit, its own split bit for bit ``split_mask``'s;
+               bit, its own split bit for bit ``split_mask``'s; the carry
+               kernel (``kernels.carry.launch_carry``) against
+               ``ops.carry.carry`` at 8 x 44100, m = 1000, at 1 x 65536,
+               m = 4096 and on part a's ragged C = 3 batch at m = 4096 and
+               1000, channels at different offsets, one launch each: deltas,
+               delayline and offset bit for bit, c0 and the end
+               accumulator within 4 * eps32 * samples;
   5. timings   device times (torch.profiler) of each kernel and its plain
                version at m = 4096 on 65536-sample blocks (K1, all five
                store forms, each beside the bytes it moves, its bound and
@@ -172,7 +181,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                hop=1 chain on 8 blocks of 8 channels x 8000 among them),
                ``Streamer.run`` and ``run_hopped``
                eager against graphed, and the ``bench 4096 16384 3`` rows
-               eager against graphed.
+               eager against graphed; the carry kernel at 8 x 44100,
+               m = 1000 and at 1 x 65536, m = 4096 beside its bound (the
+               totals' FP32 flops over 67 TFLOP/s, or its bytes once),
+               its plain version and the graphed prologue.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Inputs are made from a fixed seed.
@@ -361,13 +373,13 @@ BATCH_C, BATCH_M = 3, 8192 + 37
 def batch_path(T, dev) -> dict:
     """Part a, the channel axis: ``sdft`` (packed f32, planar bf16),
     ``sdft_power`` and ``roundtrip(low-pass)`` on a (3, 8229) batch at
-    m = 4096 whose channels sit at different offsets, each call exactly one
-    K1 launch; held against float64 at the gates above and against the
+    m = 4096 whose channels sit at different offsets, each cached call
+    exactly one K1 and one carry launch; held against float64 at the gates above and against the
     per-channel calls at the f32 class (2e-6 of scale, |d|^2 4e-6 of
     scale^2, samples 1e-5); then the hop=1 chain on 2 blocks of 2 channels
     x 4000 at m = 1000, one K2 launch per block of a cached call, against
     float64."""
-    from sdft_tpu_torch.kernels import scan as Q, spectra as S
+    from sdft_tpu_torch.kernels import carry as F, scan as Q, spectra as S
 
     errs = {}
     eps32 = float(np.finfo(np.float32).eps)
@@ -387,12 +399,14 @@ def batch_path(T, dev) -> dict:
     scale = want.abs().max().item()
     del ref
     for name, call in calls.items():
-        k1 = S.LAUNCHES
+        call(plan, stb, xb)    # the first call captures the prologue's graph
+        k1, f = S.LAUNCHES, F.LAUNCHES
         st, out = call(plan, stb, xb)
         torch.cuda.synchronize()
-        if S.LAUNCHES - k1 != 1:
-            raise AssertionError(f"{name} on a {C} x {M} batch: {S.LAUNCHES - k1} K1 "
-                                 "launches, expected one")
+        if (S.LAUNCHES - k1, F.LAUNCHES - f) != (1, 1):
+            raise AssertionError(f"{name} on a {C} x {M} batch: {S.LAUNCHES - k1} K1 and "
+                                 f"{F.LAUNCHES - f} carry launches, expected one each (a "
+                                 "cached call)")
         if name == "sdft packed f32":
             e = maxerr(torch.complex(out[..., 0].double(), out[..., 1].double()), want) / scale
             gate(f"{name} {C}x{M} m={m} (one launch) vs f64 / scale", e, 3e-6)
@@ -430,12 +444,13 @@ def batch_path(T, dev) -> dict:
     xs = signal(nb * C2 * B, SEED + 43, dev).reshape(nb, C2, B)
     st0 = T.init_state(plan, channels=C2, device=dev)
     T.roundtrip_hopped(plan, st0, xs, 1)
-    q = Q.LAUNCHES
+    q, f = Q.LAUNCHES, F.LAUNCHES
     _, hd, ys = T.roundtrip_hopped(plan, st0, xs, 1)
     torch.cuda.synchronize()
-    if Q.LAUNCHES - q != nb:
-        raise AssertionError(f"hop=1 chain {nb}x{C2}x{B}: {Q.LAUNCHES - q} K2 launches, "
-                             f"expected {nb} (one per block)")
+    if (Q.LAUNCHES - q, F.LAUNCHES - f) != (nb, nb):
+        raise AssertionError(f"hop=1 chain {nb}x{C2}x{B}: {Q.LAUNCHES - q} K2 and "
+                             f"{F.LAUNCHES - f} carry launches, expected {nb} each (one per "
+                             "block)")
     _, hd64, ys64 = T.roundtrip_hopped(p64, T.init_state(p64, channels=C2, device=dev), xs, 1)
     scale = hd64.abs().max().item()
     gate(f"roundtrip_hopped(hop=1) {nb}x{C2}x{B} (one K2 launch per block) spectra vs f64 "
@@ -937,6 +952,115 @@ def kernels_vs_plain(T, S, Q, dev) -> dict:
         out["scan"] = max(out["scan"], hold_k2(Q, plan, pro, tag))
         del pro
     return out
+
+
+#: (m, C, M) of the carry kernel's timed shapes: the spectra and hop-1
+#: cells' block, and one channel at m = 4096
+CARRY_SHAPES = [(1000, 8, 44100), (4096, 1, 65536)]
+
+
+def carry_inputs(T, plan, C: int, M: int, seed: int, dev):
+    """A batched state 333 samples into ``plan`` (by the plain front) with
+    channel c moved to offset 333 + 611 c, (C, M) samples and the kernels'
+    fine table: the carry kernel's inputs."""
+    from sdft_tpu_torch.kernels import spectra as S
+    from sdft_tpu_torch.ops import carry as plain
+    from sdft_tpu_torch.state import State
+
+    fine, _ = S._spectra_tables(plan, S.TILE_K, dev)
+    xs = signal(C * (333 + M), seed, dev).reshape(C, 333 + M)
+    _, _, st = plain.carry(plan, T.init_state(plan, channels=C, device=dev), xs[:, :333], fine)
+    m = plan.dftsize
+    offsets = torch.tensor([(333 + 611 * c) % (2 * m) for c in range(C)], dtype=torch.int32,
+                           device=dev)
+    return State(offsets, st.delayline.contiguous(), st.accumulator), \
+        xs[:, 333:].contiguous(), fine
+
+
+def carry_vs_plain(T, dev) -> float:
+    """Phase 4, the carry kernel against ``ops.carry.carry`` on the same
+    inputs, one launch each (the counter read): at the spectra cell's 8 x
+    44100, m = 1000, at 1 x 65536, m = 4096 (Hann), and on part a's ragged
+    C = 3 batch at m = 4096 and 1000 (Blackman, latency 0.5, channels at
+    different offsets).  The deltas, the next delayline and offset bit for
+    bit; c0 and the end accumulator within 4 * eps32 * (samples so far +
+    M).  Returns the largest difference of c0 and the accumulator."""
+    from sdft_tpu_torch.kernels import carry as F, spectra as S
+    from sdft_tpu_torch.ops import carry as plain
+
+    eps32 = float(np.finfo(np.float32).eps)
+    cases = []
+    for i, (m, C, M) in enumerate(CARRY_SHAPES):
+        plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+        cases.append((plan, *carry_inputs(T, plan, C, M, SEED + 90 + i, dev), 333))
+    for m in (4096, 1000):
+        plan = T.Plan(m, window="blackman", latency=0.5, precision=T.FAST_PRECISION)
+        stb, _ = desynchronized(T, plan, BATCH_C, dev)
+        fine, _ = S._spectra_tables(plan, S.TILE_K, dev)
+        x = signal(BATCH_C * BATCH_M, SEED + 44, dev).reshape(BATCH_C, BATCH_M)
+        cases.append((plan, stb, x, fine, 300 + 700 * BATCH_C))
+    worst = 0.0
+    for plan, st, x, fine, lead in cases:
+        (C, M), m = x.shape, plan.dftsize
+        tag = f"carry {C}x{M} m={m} {plan.window.name.lower()}"
+        dt, c0, want = plain.carry(plan, st, x, fine)
+        F.LAUNCHES = 0
+        delta, c0k, got = F.launch_carry(plan, st, x, fine)
+        torch.cuda.synchronize()
+        if F.LAUNCHES != 1:
+            raise AssertionError(f"{tag}: {F.LAUNCHES} launches, expected one")
+        same = (torch.equal(delta, dt.reshape(C, -1)) and torch.equal(got.delayline, want.delayline)
+                and torch.equal(got.offset, want.offset))
+        print(f"  {tag}: deltas, delayline and offset bit for bit the plain version's {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{tag}: deltas, delayline or offset differ from ops.carry.carry")
+        limit = 4 * eps32 * (lead + M)
+        err_c0 = maxerr(c0k, torch.view_as_real(c0))
+        err_acc = maxerr(got.accumulator, want.accumulator)
+        gate(f"{tag} c0 vs ops.carry.carry (abs)", err_c0, limit)
+        gate(f"{tag} end accumulator vs ops.carry.carry (abs)", err_acc, limit)
+        worst = max(worst, err_c0, err_acc)
+        del dt, c0, delta, c0k
+    return worst
+
+
+def carry_cost(m: int, C: int, M: int) -> tuple:
+    """(FP32 flops, bytes) of the carry front of a (C, M) block: the totals
+    product; the samples, history, accumulator and offsets read, the
+    deltas, delayline, c0 and end accumulator written, once each."""
+    K = 128
+    nt = -(-M // K)
+    flops = 2.0 * C * nt * K * 2 * m
+    nbytes = 4 * (C * M + 2 * C * 2 * m + 2 * C * m + C) + 4 * C * nt * K \
+        + 8 * C * nt * m + 8 * C * m
+    return flops, nbytes
+
+
+def carry_timings(T, dev, card: str) -> dict:
+    """Phase 5, the carry kernel at ``CARRY_SHAPES``: its device time
+    (profiler) beside its bound, the plain version (``ops.carry.carry``,
+    eager) and the graphed prologue (``kernels.spectra.prologue``: the
+    kernel and the next offset, as the cells run it).  No single PyTorch
+    call computes it (library: none)."""
+    from sdft_tpu_torch.kernels import carry as F, spectra as S
+    from sdft_tpu_torch.ops import carry as plain
+
+    res = {}
+    for i, (m, C, M) in enumerate(CARRY_SHAPES):
+        plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+        st, x, fine = carry_inputs(T, plan, C, M, SEED + 95 + i, dev)
+        flops, nbytes = carry_cost(m, C, M)
+        b_ms, b_by = bound(nbytes, flops)
+        k = device_time(lambda: F.launch_carry(plan, st, x, fine), 50)
+        p = device_time(lambda: plain.carry(plan, st, x, fine), 20)
+        g = device_time(lambda: S.prologue(plan, st, x), 50)
+        print(f"timing: carry {C}x{M} m={m}: kernel device {k:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), {b_ms / k:.1%} of "
+              f"bound; plain device {p:.4f} ms; graphed prologue {g:.4f} ms [{card}]",
+              flush=True)
+        res[f"{C}x{M} m={m}"] = (k, p, b_ms, b_by, g)
+    return res
 
 
 #: bytes per output bin of each K1 store form
@@ -2892,18 +3016,20 @@ def print_ptxas(log: pathlib.Path) -> None:
     """ptxas's registers and spills of each K1/K2 instantiation (store
     form, vector stores, window halo), of each probe instantiation (body,
     table inputs, fast; its shared memory is dynamic, csrc/kparts.cu
-    smem_bytes) and of split_mm's product and split-K kernels (passes),
-    from the build log, and any performance remark it made."""
+    smem_bytes), of split_mm's product and split-K kernels (passes) and of
+    the carry kernel (vector copies, roots in shared memory), from the
+    build log, and any performance remark it made."""
     import re
 
     from sdft_tpu_torch.kernels import _build
 
     entries, remarks = _build.ptxas_report(log)
-    found = {"spectra": 0, "scan": 0, "kparts": 0, "split_mm": 0}
+    found = {"spectra": 0, "scan": 0, "kparts": 0, "split_mm": 0, "carry": 0}
     for name, regs, st, ld, smem in entries:
         k12 = re.match(r"_ZN4sdft\d+(spectra|scan)_kernelILi(\d)ELb(\d)ELi(\d)E", name)
         kp = re.match(r"_ZN6kparts13kparts_kernelILi(\d)ELb(\d)ELb(\d)E", name)
         sm = re.match(r"_ZN8split_mm\d+(split_mm_kernel|split_mm_reduce)ILi(\d)E", name)
+        cf = re.match(r"_ZN4sdft5front11carry_frontILb(\d)ELb(\d)E", name)
         if k12:
             kind, store, vec, halo = k12.groups()
             label = f"{kind}_kernel<store={store}, vector={vec}, halo={halo}>"
@@ -2913,6 +3039,9 @@ def print_ptxas(log: pathlib.Path) -> None:
         elif sm:
             kind = "split_mm"
             label = "{}<passes={}>".format(*sm.groups())
+        elif cf:
+            kind = "carry"
+            label = "carry_front<vector={}, shared_rows={}>".format(*cf.groups())
         else:
             continue
         found[kind] += 1
@@ -2941,7 +3070,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {flags}", flush=True)
 
     import sdft_tpu_torch as T
-    from sdft_tpu_torch.kernels import _build, kparts as P, scan as Q, spectra as S
+    from sdft_tpu_torch.kernels import _build, carry as F, kparts as P, scan as Q, spectra as S
     from sdft_tpu_torch.kernels import split_mm as M
 
     t0 = time.perf_counter()
@@ -2954,10 +3083,10 @@ def main() -> int:
         print(f"elapsed: {part} done {time.perf_counter() - t0:.1f} s after the build began",
               flush=True)
 
-    S.LAUNCHES = Q.LAUNCHES = 0
+    S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
     errs = main_path(T, dev)
     torch.cuda.synchronize()
-    launches = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+    launches = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
     P.LAUNCHES.update(make=0, tables=0)
     M.LAUNCHES = 0
     errs.update(driver_path(T, dev))
@@ -2970,10 +3099,10 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     cli_ref = errs.pop("cli")
-    S.LAUNCHES = Q.LAUNCHES = 0
+    S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
     errs.update(stream_path(T, dev))
     torch.cuda.synchronize()
-    part_c = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+    part_c = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
     print(f"stream part launches: {part_c}", flush=True)
     for name, n in part_c.items():
         if n <= 0:
@@ -2981,10 +3110,11 @@ def main() -> int:
         launches[name] += n
     done("part c")
     cells = graph_cells(T, Q, dev)
-    S.LAUNCHES = Q.LAUNCHES = M.LAUNCHES = 0
+    S.LAUNCHES = Q.LAUNCHES = M.LAUNCHES = F.LAUNCHES = 0
     graph_peaks = graph_path(T, S, Q, M, dev, card, cells)
     torch.cuda.synchronize()
-    part_f = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "split_mm": M.LAUNCHES}
+    part_f = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "split_mm": M.LAUNCHES,
+              "carry": F.LAUNCHES}
     print(f"graphs part launches: {part_f}", flush=True)
     for name, n in part_f.items():
         if n <= 0:
@@ -3001,16 +3131,18 @@ def main() -> int:
         try:
             mesh = par.make_mesh(1, 1, 1)
             print(f"sharded: mesh {mesh}, backend {dist.get_backend()}", flush=True)
-            S.LAUNCHES = Q.LAUNCHES = 0
+            S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
             shard_errs, jobs, by_program = sharded_path(T, S, Q, dev, card, cli_ref, mesh)
             torch.cuda.synchronize()
-            part_d = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+            part_d = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
             print(f"sharded part launches: {part_d}; by program (K1, K2): {by_program}",
                   flush=True)
             if by_program.get("sharded_sdft_pallas", [0])[0] <= 0:
                 raise AssertionError("sharded_sdft_pallas did not launch K1")
             if by_program.get("sharded_roundtrip_pallas", [0, 0])[1] <= 0:
                 raise AssertionError("sharded_roundtrip_pallas did not launch K2")
+            if part_d["carry"] <= 0:
+                raise AssertionError("the sharded kernel programs did not launch the carry kernel")
             for name, n in part_d.items():
                 launches[name] += n
             errs.update(shard_errs)
@@ -3021,10 +3153,10 @@ def main() -> int:
             # phase 5: once another process had used the card (the
             # crosscheck's subprocess), every later device_time of this
             # process lost 1-3 of 10 K1 events (PERF.md section 6)
-            S.LAUNCHES = Q.LAUNCHES = 0
+            S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
             t_tools = time.perf_counter()
             tools = {"bench_mesh": bench_mesh(card)}
-            part_e = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES}
+            part_e = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
             t_tools = time.perf_counter() - t_tools
         finally:
             par.multihost.shutdown()
@@ -3032,17 +3164,20 @@ def main() -> int:
     vs_plain = kernels_vs_plain(T, S, Q, dev)
     vs_plain.update({f"kparts_{v}": e for v, e in probes_vs_plain(P, dev).items()})
     vs_plain["split_mm"] = split_mm_vs_plain(dev)
+    vs_plain["carry"] = carry_vs_plain(T, dev)
     times = timings(T, S, Q, dev, card)
     times["split_mm"] = split_mm_timings(dev, card)
+    times["carry"] = carry_timings(T, dev, card)
     times.update(driver_timings(T, P, dev, card, times["k1_planar_float32"][0]))
     times.update(stream_timings(T, dev, card, times["k1_planar_float32"][0]))
     times["graphs"] = graph_timings(T, dev, card, cells)
     done("phases 4 and 5")
-    S.LAUNCHES = Q.LAUNCHES = 0
+    S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
     t0_tools = time.perf_counter()
     tools.update(tools_path(T, S, Q, card))
     torch.cuda.synchronize()
-    part_e = {"spectra": part_e["spectra"] + S.LAUNCHES, "scan": part_e["scan"] + Q.LAUNCHES}
+    part_e = {"spectra": part_e["spectra"] + S.LAUNCHES, "scan": part_e["scan"] + Q.LAUNCHES,
+              "carry": part_e["carry"] + F.LAUNCHES}
     print(f"tools part launches: {part_e}", flush=True)
     for name, n in part_e.items():
         if n <= 0:
@@ -3063,6 +3198,7 @@ def main() -> int:
     src = "sdft_tpu_torch/kernels/csrc/"
     k1, k2 = times["k1_planar_float32"], times["k2_packed"]
     sm = times["split_mm"]["totals 8x32768", 3]
+    cf = times["carry"]["8x44100 m=1000"]
     (b1, bp1, bb1, bby1, bl1, _), (b2, bp2, bb2, bby2) = times["batch"]["k1"], times["batch"]["k2"]
     kernels = [
         {"name": "spectra", "route": "cuda", "source": src + "spectra.cu",
@@ -3103,6 +3239,15 @@ def main() -> int:
          "library_ms": sm[4],
          "by_shape": {f"{label} x{n}": [round(v[0], 5), round(v[2], 5)]
                       for (label, n), v in times["split_mm"].items()}},
+        {"name": "carry", "route": "cuda", "source": src + "carry.cu",
+         "replaces": "sdft_tpu/kernels/analysis_pallas.py:632-748",
+         "note": "the launcher-side _spectra_prologue, left to XLA by the JAX package: no "
+                 "Pallas source; timed at 8x44100 m=1000",
+         "launches": launches["carry"], "max_abs_err": vs_plain["carry"],
+         "ms": cf[0], "plain_ms": cf[1], "bound_ms": cf[2], "bound_by": cf[3],
+         "library_ms": None, "graph_ms": cf[4],
+         "by_shape": {label: [round(v[0], 5), round(v[2], 5)]
+                      for label, v in times["carry"].items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,10 +61,10 @@ every path runs eagerly on the card (``jax.disable_jit``), the yardstick
 the graphs are held against.
 
 A replay launches the kernels it captured without running their Python
-wrappers, so each graph adds its captured K1, K2 and ``split_mm``
-launches to ``kernels.spectra.LAUNCHES``, ``kernels.scan.LAUNCHES`` and
-``kernels.split_mm.LAUNCHES`` per replay.  ``CAPTURES`` counts the
-graphs captured and ``EVICTIONS`` those the bound evicted: a stream whose
+wrappers, so each graph adds its captured K1, K2, ``split_mm`` and carry
+launches to ``kernels.spectra.LAUNCHES``, ``kernels.scan.LAUNCHES``,
+``kernels.split_mm.LAUNCHES`` and ``kernels.carry.LAUNCHES`` per replay.
+``CAPTURES`` counts the graphs captured and ``EVICTIONS`` those the bound evicted: a stream whose
 shapes vary captures and evicts on every call (``tracing.counters``).
 Under a profiler (``tracing``) each replay, with its key, lookup and
 copy-in, lies in a span ``sdft.graphs.replay.<name>``, each warm-up and
@@ -192,9 +192,9 @@ def _rebuild(tree, tensors):
 
 
 def _launch_counters():
-    from .kernels import scan, spectra, split_mm
+    from .kernels import carry, scan, spectra, split_mm
 
-    return (spectra, scan, split_mm)
+    return (spectra, scan, split_mm, carry)
 
 
 class Graph:

@@ -24,7 +24,7 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("spectra.cu", "scan.cu", "kparts.cu", "split_mm.cu")
+SOURCES = ("spectra.cu", "scan.cu", "kparts.cu", "split_mm.cu", "carry.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,7 +34,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 #: C signatures of the entry points (csrc/spectra.cu, scan.cu, kparts.cu,
-#: split_mm.cu)
+#: split_mm.cu, carry.cu)
 SIGNATURES = {
     "sdft_spectra_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _I, _I, _I, _I, _P),
@@ -44,6 +44,7 @@ SIGNATURES = {
                            _I, _F, _I, _P),
     "sdft_split_mm_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "sdft_split_mask_launch": (_P, _P, _P, _L, _P),
+    "sdft_carry_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "sdft_spectra_occupancy": (_I,),
     "sdft_scan_occupancy": (_I,),
     "sdft_kparts_occupancy": (_I, _I, _I, _I),

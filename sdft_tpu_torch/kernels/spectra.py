@@ -2,10 +2,12 @@
 
 Counterpart of ``_launch_spectra_conv`` and ``_kernel_spectra_conv``
 (sdft_tpu/kernels/analysis_pallas.py:781-897, 509-629).  The wrapper runs
-the launcher-side prologue (``_spectra_prologue``, :632-748) in PyTorch as
-the carry front of ``ops.carry`` at K = TILE_K with the exact FP32 fine
-table of ``_spectra_tables``: the comb deltas, the per-tile carries c0_t in
-the demodulated frame and the next state.  That leaves the kernel
+the launcher-side prologue (``_spectra_prologue``, :632-748) as the carry
+front of ``ops.carry`` at K = TILE_K with the exact FP32 fine table of
+``_spectra_tables``: the comb deltas, the per-tile carries c0_t in the
+demodulated frame and the next state; on the card in one launch of the
+carry kernel (``kernels.carry``), on the CPU in ``ops.carry`` itself, its
+plain version.  That leaves the kernel
 (csrc/spectra.cu) a stateless map over tiles:
 each tile's spectra follow from its carry c0_t, its K deltas and the exact
 phase table T_i^k, k = 0..K.  The TPU prologue's padded bin axis and its
@@ -17,11 +19,12 @@ totals GEMM on the (C*nt, K) deltas) and one launch, the counterpart of the
 JAX package's vmap over its Pallas call (sdft_tpu/api.py:57-63): the
 kernel walks the tiles of every channel.
 
-On the card the prologue replays as a captured graph (``prologue``, the
-counterpart of the JAX package's compiled ``_sdft_1d``/``_sdft_2d_pallas``,
-sdft_tpu/api.py:38,58) and K1 is launched eagerly after the replay, on the
-same stream, straight from the graph's static carries into the caller's
-outputs: no spectra buffer is pinned in the graph's pool.
+On the card the prologue (one carry launch) replays as a captured graph
+(``prologue``, the counterpart of the JAX package's compiled
+``_sdft_1d``/``_sdft_2d_pallas``, sdft_tpu/api.py:38,58) and K1 is launched
+eagerly after the replay, on the same stream, straight from the graph's
+static carries into the caller's outputs: no spectra buffer is pinned in
+the graph's pool.
 
 On a CPU tensor the wrapper runs the kernel's plain PyTorch version
 (``spectra_reference``); on a CUDA tensor it launches the kernel or raises.
@@ -47,6 +50,7 @@ from ..state import State, batch_state
 from ..tracing import spanned
 from ..windows import WINDOW_HALO, WINDOW_TAPS
 from ._build import check, library
+from .carry import launch_carry
 
 #: samples per tile: the rows of the prologue's per-tile carries are M/K,
 #: and the kernel keeps K/8 + 1 coarse phasor rows in shared memory
@@ -124,11 +128,12 @@ class Prologue(NamedTuple):
 
 
 def spectra_prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologue:
-    """The sequential part of one block, as dense ops over all tiles of all
-    channels (port of ``_spectra_prologue``, analysis_pallas.py:632-748,
-    and of the JAX package's vmap over it).  ``samples`` is (M,) with an
-    unbatched state or (C, M) with a batched one; channels may sit at
-    different offsets."""
+    """The sequential part of one block, over all tiles of all channels
+    (port of ``_spectra_prologue``, analysis_pallas.py:632-748, and of the
+    JAX package's vmap over it): one launch of the carry kernel on a CUDA
+    tensor (``kernels.carry``), its plain version ``ops.carry.carry`` on a
+    CPU tensor.  ``samples`` is (M,) with an unbatched state or (C, M) with
+    a batched one; channels may sit at different offsets."""
     if samples.ndim not in (1, 2) or (samples.ndim == 2) != (state.offset.ndim == 1):
         raise ValueError(f"samples {tuple(samples.shape)} need a state batched iff "
                          f"they are (C, M), got offset {tuple(state.offset.shape)}")
@@ -137,9 +142,16 @@ def spectra_prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologu
     fine, phase = _spectra_tables(plan, TILE_K, samples.device)
     batched = State(state.offset.reshape(C), state.delayline.reshape(C, -1),
                     state.accumulator.reshape(C, plan.dftsize, 2))
-    dt, c0, st = carry(plan, batched, x, fine)
+    if x.device.type == "cpu":
+        dt, c0, st = carry(plan, batched, x, fine)
+        delta, c0 = dt.view(C, -1), torch.view_as_real(c0)
+    else:
+        p = plan.precision
+        st = State(batched.offset, batched.delayline.to(p.td_dtype).contiguous(),
+                   batched.accumulator.to(p.fd_dtype).contiguous())
+        delta, c0, st = launch_carry(plan, st, x.to(p.td_dtype).contiguous(), fine)
     new_state = State(*(a.reshape(b.shape) for a, b in zip(st, state)))
-    return Prologue(dt.view(C, -1), torch.view_as_real(c0), phase, new_state, M)
+    return Prologue(delta, c0, phase, new_state, M)
 
 
 def prologue(plan: Plan, state: State, samples: torch.Tensor) -> Prologue:

@@ -33,8 +33,8 @@ generator's ``yield``):
     that take this rank's shards and assemble the outputs.
 
 ``counters()`` reads the port's counters: the graphs captured and evicted
-(``graphs.CAPTURES``, ``graphs.EVICTIONS``), the K1, K2 and ``split_mm``
-launches (each kernel module's ``LAUNCHES``), the chains
+(``graphs.CAPTURES``, ``graphs.EVICTIONS``), the K1, K2, ``split_mm``
+and carry launches (each kernel module's ``LAUNCHES``), the chains
 ``Streamer.run_hopped`` copied home without blocking and of them those
 still in flight once the next chain was queued (``stream.streamer``'s
 ``PINNED_COPIES``, ``OVERLAPPED_COPIES``), and the blocks
@@ -78,7 +78,7 @@ def counters() -> dict:
     them): graphs captured and evicted, kernel launches, the Streamer's
     pinned and overlapped copies home, the driver chain's blocks by route."""
     from . import graphs
-    from .kernels import scan, spectra, split_mm
+    from .kernels import carry, scan, spectra, split_mm
     from .ops import lti
     from .stream import streamer
 
@@ -86,6 +86,7 @@ def counters() -> dict:
             "kernels.spectra.launches": spectra.LAUNCHES,
             "kernels.scan.launches": scan.LAUNCHES,
             "kernels.split_mm.launches": split_mm.LAUNCHES,
+            "kernels.carry.launches": carry.LAUNCHES,
             "stream.pinned_copies": streamer.PINNED_COPIES,
             "stream.overlapped_copies": streamer.OVERLAPPED_COPIES,
             "ops.lti.k2_blocks": lti.K2_BLOCKS, "ops.lti.body_blocks": lti.BODY_BLOCKS}

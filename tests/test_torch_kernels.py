@@ -12,6 +12,8 @@ skip here).  Gates, from tests/test_pallas_kernels.py:
   * carried accumulators within 4 * eps32 * M of the f64 oracle (:54-58).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from sdft_tpu.kernels import roundtrip_block_fused as j_roundtrip_block_fused
 from sdft_tpu.ops.lti import _chain_hop1_pallas_jit
 from sdft_tpu_torch import graphs
 from sdft_tpu_torch.kernels import _build, scan, spectra
+from sdft_tpu_torch.kernels import carry as carry_kernel
 from sdft_tpu_torch.ops import carry, lti
 from sdft_tpu_torch.state import State, batch_state, stack_states
 
@@ -74,24 +77,41 @@ def test_kernel_supported_mirrors_plan_supported():
     assert not T.kernel_supported(T.Plan((1 << 19) + 1, precision=T.FAST_PRECISION), 8)
 
 
-def test_wrappers_refuse_non_cuda_tensors_at_launch():
+def test_wrappers_refuse_non_cuda_tensors_at_launch(monkeypatch):
     """The launch path never falls back: on a tensor that is not on a CUDA
-    device it raises before touching the library."""
+    device it raises before touching the library, and the carry kernel's
+    wrapper raises on a wrong dtype or shape too."""
     _, tp = _plans(256)
-    pro = spectra.spectra_prologue(tp, T.init_state(tp, device="cpu"), torch.as_tensor(_signal(100)))
+    st = T.init_state(tp, device="cpu")
+    x = torch.as_tensor(_signal(100))
+    pro = spectra.spectra_prologue(tp, st, x)
+    for module in (spectra, scan, carry_kernel):
+        monkeypatch.setattr(module, "library", lambda: pytest.fail("touched the library"))
     with pytest.raises(ValueError, match="CUDA"):
         spectra.launch_spectra(tp, pro)
     with pytest.raises(ValueError, match="CUDA"):
         scan.launch_scan(tp, pro, scan.synthesis_row(tp, "cpu"))
+    fine, _ = spectra._spectra_tables(tp, spectra.TILE_K, x.device)
+    batched = State(*(a[None] for a in st))
+    with pytest.raises(ValueError, match="CUDA"):
+        carry_kernel.launch_carry(tp, batched, x[None], fine)
+    for args in ((batched, x[None].double(), fine),
+                 (batched._replace(offset=batched.offset.long()), x[None], fine),
+                 (batched._replace(accumulator=batched.accumulator[..., :1]), x[None], fine),
+                 (batched, x, fine),
+                 (batched, x[None], fine[:64]),
+                 (batched, x.reshape(1, 100)[:, ::2], fine)):
+        with pytest.raises(ValueError, match=r"need (contiguous|\(C, M\))"):
+            carry_kernel.launch_carry(tp, *args)
 
 
 def test_cpu_wrapper_runs_the_plain_version_without_counting():
     _, tp = _plans(256)
-    before = (spectra.LAUNCHES, scan.LAUNCHES)
+    before = (spectra.LAUNCHES, scan.LAUNCHES, carry_kernel.LAUNCHES)
     x = torch.as_tensor(_signal(200))
     T.sdft(tp, T.init_state(tp, device="cpu"), x)
     T.roundtrip_hopped(tp, T.init_state(tp, device="cpu"), x.reshape(2, 100), 1)
-    assert (spectra.LAUNCHES, scan.LAUNCHES) == before
+    assert (spectra.LAUNCHES, scan.LAUNCHES, carry_kernel.LAUNCHES) == before
 
 
 def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
@@ -117,6 +137,23 @@ def test_library_path_tracks_the_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libsdft_kernels_")
     assert all((_build.CSRC / s).is_file() for s in _build.SOURCES + _build.HEADERS)
+
+
+def test_carry_kernel_source_and_signature_are_registered():
+    """csrc/carry.cu is built with the other sources, its C entry's
+    declared arguments match the source's, and its kernels' names are none
+    the benchmark's readers take for K1, K2 or NCCL."""
+    assert "carry.cu" in _build.SOURCES and (_build.CSRC / "carry.cu").is_file()
+    src = (_build.CSRC / "carry.cu").read_text()
+    params = re.search(r'extern "C" int sdft_carry_launch\(([^)]*)\)', src).group(1)
+    sig = _build.SIGNATURES["sdft_carry_launch"]
+    assert len(sig) == len(params.split(",")) == 16
+    kinds = [_build._I if re.match(r"\s*int ", p) else _build._P for p in params.split(",")]
+    assert list(sig) == kinds
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src)
+    assert kernels == ["carry_front"]
+    assert not any(w in k for k in kernels for w in ("spectra_kernel", "scan_kernel", "nccl"))
+    assert carry_kernel.K == spectra.TILE_K
 
 
 @pytest.mark.parametrize("nt", [5, 32, 70, 96])
@@ -735,4 +772,108 @@ def test_cuda_channel_batch_equals_per_channel_launches(cuda_device, m, window):
                 torch.testing.assert_close(a[c].float(), b.float(), atol=2e-6 * scale, rtol=rtol)
             torch.testing.assert_close(st.accumulator[c], sc.accumulator, rtol=0,
                                        atol=4 * np.finfo(np.float32).eps * (M + 100))
+    torch.cuda.synchronize()
+
+
+# -- on the card: the carry kernel against ops.carry.carry -----------------------------
+
+CARRY_M = [128, 1000, 1001, 4096, 8191]
+CARRY_PLANS = [("boxcar", None), ("hann", "inner"), ("blackman", None),
+               ("boxcar", "low"), ("hann", None), ("blackman", "inner")]
+
+
+def _carry_inputs(m, window, roi, C, M, dev, lead=333):
+    """A plan, a (C,) batched state after ``lead`` samples of the plain
+    front with each channel moved to its own offset, (C, M) samples and the
+    kernels' fine table, all on ``dev``."""
+    roi = {None: None, "inner": (3, m - 5), "low": (0, 100)}[roi]
+    tp = T.Plan(m, window=window, roi=roi, precision=T.FAST_PRECISION)
+    fine, _ = spectra._spectra_tables(tp, spectra.TILE_K, dev)
+    xs = torch.as_tensor(_signal(C * (lead + M), C).reshape(C, lead + M), device=dev)
+    _, _, st = carry.carry(tp, T.init_state(tp, channels=C, device=dev), xs[:, :lead], fine)
+    offsets = [(lead + 611 * c) % (2 * m) for c in range(C)]
+    st = State(torch.tensor(offsets, dtype=torch.int32, device=dev), st.delayline.contiguous(),
+               st.accumulator)
+    return tp, st, xs[:, lead:].contiguous(), fine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", CARRY_M)
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("M", ["1", "100", "2m-1", "44100"])
+def test_cuda_carry_kernel_matches_the_plain_front(cuda_device, m, C, M):
+    """The carry kernel against ``ops.carry.carry`` on the card, with each
+    window and with and without a ROI, every channel at its own offset:
+    the deltas, the next delayline and offset bit for bit; c0 and the end
+    accumulator within 4 * eps32 * (samples so far + M) (the totals and the
+    prefix are summed in another order than the GEMM and the cumsums)."""
+    M = {"1": 1, "100": 100, "2m-1": 2 * m - 1, "44100": 44100}[M]
+    for window, roi in CARRY_PLANS:
+        tp, st, x, fine = _carry_inputs(m, window, roi, C, M, cuda_device)
+        dt, c0, want = carry.carry(tp, st, x, fine)
+        before = carry_kernel.LAUNCHES
+        delta, c0k, got = carry_kernel.launch_carry(tp, st, x, fine)
+        assert carry_kernel.LAUNCHES == before + 1
+        assert torch.equal(delta, dt.reshape(C, -1)), (window, roi)
+        assert torch.equal(got.delayline, want.delayline) and torch.equal(got.offset, want.offset)
+        bound = 4 * np.finfo(np.float32).eps * (333 + M)
+        torch.testing.assert_close(c0k, torch.view_as_real(c0), rtol=0, atol=bound)
+        torch.testing.assert_close(got.accumulator, want.accumulator, rtol=0, atol=bound)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,C,M", [(1000, 8, 44100), (8191, 1, 300), (129, 3, 777)])
+def test_cuda_carry_kernel_repeats_bit_for_bit(cuda_device, m, C, M):
+    """Five launches on the same inputs give the same c0 and end
+    accumulator bit for bit (every output has one writer, summed in a fixed
+    order), and ``spectra_prologue`` is that launch, an unbatched block as
+    C = 1."""
+    tp, st, x, fine = _carry_inputs(m, "hann", None, C, M, cuda_device)
+    runs = [carry_kernel.launch_carry(tp, st, x, fine) for _ in range(5)]
+    for delta, c0, end in runs[1:]:
+        assert torch.equal(c0, runs[0][1]) and torch.equal(end.accumulator, runs[0][2].accumulator)
+        assert torch.equal(delta, runs[0][0])
+    pro = spectra.spectra_prologue(tp, st, x)
+    assert torch.equal(pro.c0, runs[0][1]) and torch.equal(pro.delta, runs[0][0])
+    one = spectra.spectra_prologue(tp, batch_state(st, 0), x[0])
+    assert torch.equal(one.c0, runs[0][1][:1]) and one.state.accumulator.shape == (m, 2)
+    assert torch.equal(one.state.accumulator, runs[0][2].accumulator[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_carry_kernel_takes_more_channels_than_a_grid_axis(cuda_device):
+    """65537 channels, more than the grid's channel axis takes (65535):
+    the entry launches once per 65535 channels, each on its own slices, and
+    the result is the plain front's, as at any C."""
+    m, C, M = 128, 65537, 100
+    tp, st, x, fine = _carry_inputs(m, "hann", None, C, M, cuda_device)
+    dt, c0, want = carry.carry(tp, st, x, fine)
+    delta, c0k, got = carry_kernel.launch_carry(tp, st, x, fine)
+    assert torch.equal(delta, dt.reshape(C, -1))
+    assert torch.equal(got.delayline, want.delayline) and torch.equal(got.offset, want.offset)
+    bound = 4 * np.finfo(np.float32).eps * (333 + M)
+    torch.testing.assert_close(c0k, torch.view_as_real(c0), rtol=0, atol=bound)
+    torch.testing.assert_close(got.accumulator, want.accumulator, rtol=0, atol=bound)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_carry_kernel_launches_once_a_replay(cuda_device):
+    """The prologue's graph captures one carry launch, and each replay adds
+    it to ``counters()``."""
+    from sdft_tpu_torch import tracing
+
+    tp = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(tp, channels=2, device=cuda_device)
+    x = torch.as_tensor(_signal(2 * 5000, 6).reshape(2, 5000), device=cuda_device)
+    spectra.prologue(tp, st, x)
+    (entry,) = [e for e in graphs.entries() if e.name == "spectra_prologue"
+                and e.key[1] == (tp,) and e.key[2][-1][0] == (2, 5000)]
+    assert entry.launches == {"carry": 1}
+    before = tracing.counters()["kernels.carry.launches"]
+    for _ in range(3):
+        spectra.prologue(tp, st, x)
+    assert tracing.counters()["kernels.carry.launches"] - before == 3
     torch.cuda.synchronize()
