@@ -926,11 +926,47 @@ def hold_k2(Q, plan, pro, tag: str) -> float:
     return maxerr(dk, dr)
 
 
+#: (C, B) of the hop=1 chain blocks phase 4 holds K2 on at m = 1000: an
+#: 8000-sample batch and the hop-1 chain cell's block
+HOP1_SHAPES = [(8, 8000), (8, 44100)]
+
+
+def hold_hop1_chain(T, S, Q, dev, C: int, B: int) -> float:
+    """The hop=1 chain on two blocks of C x B at m = 1000, Hann: a cached
+    call launches one carry kernel and one K2 a block; the first block's
+    spectra and samples equal a K2 launch on that block's prologue bit for
+    bit, and that launch is held to the plain version (``hold_k2``).
+    Returns the spectra's error."""
+    from sdft_tpu_torch.kernels import carry as F
+
+    plan = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+    xs = signal(2 * C * B, SEED + 46, dev).reshape(2, C, B)
+    st0 = T.init_state(plan, channels=C, device=dev)
+    T.roundtrip_hopped(plan, st0, xs, 1)    # the first call captures the chain's graph
+    q, f = Q.LAUNCHES, F.LAUNCHES
+    _, hd, ys = T.roundtrip_hopped(plan, st0, xs, 1)
+    torch.cuda.synchronize()
+    if (Q.LAUNCHES - q, F.LAUNCHES - f) != (2, 2):
+        raise AssertionError(f"hop=1 chain 2x{C}x{B}: {Q.LAUNCHES - q} K2 and "
+                             f"{F.LAUNCHES - f} carry launches, expected 2 each (one a block)")
+    pro = S.spectra_prologue(plan, st0, xs[0])
+    d, y = Q.launch_scan(plan, pro, Q.synthesis_row(plan, dev), "packed")
+    same = torch.equal(hd[0], d) and torch.equal(ys[0], y)
+    print(f"  hop=1 chain 2x{C}x{B} m={plan.dftsize}: one K2 and one carry launch a block; the "
+          f"first block equals K2 on its prologue bit for bit: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"hop=1 chain 2x{C}x{B}: the first block differs from K2 on its "
+                             "prologue")
+    del hd, ys, d, y
+    return hold_k2(Q, plan, pro, f" hop=1 chain block {C}x{B}")
+
+
 def kernels_vs_plain(T, S, Q, dev) -> dict:
     """Phase 4: each kernel against its plain version on the same inputs:
     K1 at m = 4096 on a 16384-sample block, K2 at m = 1000 on 8000; then
     both on part a's ragged C = 3 batch at m = 4096 and m = 1000 (Blackman,
-    latency 0.5), channels at different offsets."""
+    latency 0.5), channels at different offsets; then K2 on the first block
+    of a hop=1 chain at each of HOP1_SHAPES (``hold_hop1_chain``)."""
     out = {}
     plan = T.Plan(4096, window="hann", precision=T.FAST_PRECISION)
     st, _ = T.sdft(plan, T.init_state(plan, device=dev), signal(777, SEED + 3, dev))
@@ -951,6 +987,9 @@ def kernels_vs_plain(T, S, Q, dev) -> dict:
         out["spectra"] = max(out["spectra"], hold_k1(S, plan, pro, tag))
         out["scan"] = max(out["scan"], hold_k2(Q, plan, pro, tag))
         del pro
+    for C, B in HOP1_SHAPES:
+        out["scan"] = max(out["scan"], hold_hop1_chain(T, S, Q, dev, C, B))
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1186,7 +1225,8 @@ def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 3
     device memory above the inputs is the 8 GiB of spectra, not twice
     that; its device and wall time, the prologue's and K1's device times,
     K1's bound, its plain version and torch.stft on the same batch.  Then
-    K2 on 8 channels x 8000 at m = 1000 beside its bound."""
+    K2 on 8 channels x 8000 and on the hop-1 chain cell's 8 x 44100 at
+    m = 1000 beside its bound."""
     res = {}
     plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
     st = T.init_state(plan, channels=C, device=dev)
@@ -1236,21 +1276,25 @@ def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 3
     lib = stft_beside_k1(T, plan, xs, card)
     res["k1"] = (k, plain, b_ms, b_by, lib, t_pro)
 
-    m, B = 1000, 8000
+    m = 1000
     plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
     st = T.init_state(plan, channels=C, device=dev)
-    x = signal(C * B, SEED + 45, dev).reshape(C, B)
-    pro = S.spectra_prologue(plan, st, x)
     synth = Q.synthesis_row(plan, dev)
-    k = device_time(lambda: Q.launch_scan(plan, pro, synth, "packed"), 20)
-    p = device_time(lambda: Q.forward_and_y_reference(plan, pro, synth, "packed"), 5, 1)
-    nbytes = C * B * m * 8 + C * B * 4 + tile_input_bytes(pro) + synth.numel() * 4
-    b_ms, b_by = bound(nbytes, K2_FLOPS_PER_BIN * C * B * m)
-    print(f"timing: K2 packed batch C={C} m={m} B={B}: kernel device {k:.4f} ms "
-          f"({C * B / k * 1e3:.4e} samples/s, {nbytes / k / 1e6:.1f} GB/s), bound {b_ms:.4f} "
-          f"ms ({b_by}), {b_ms / k:.1%} of bound; plain device {p:.4f} ms; library: none "
-          f"[{card}]", flush=True)
-    res["k2"] = (k, p, b_ms, b_by)
+    for B, key in ((8000, "k2"), (44100, "k2_hop1_cell")):
+        x = signal(C * B, SEED + 45, dev).reshape(C, B)
+        pro = S.spectra_prologue(plan, st, x)
+        k = device_time(lambda: Q.launch_scan(plan, pro, synth, "packed"), 20)
+        p = device_time(lambda: Q.forward_and_y_reference(plan, pro, synth, "packed"),
+                        5 if B == 8000 else 2, 1)
+        nbytes = C * B * m * 8 + C * B * 4 + tile_input_bytes(pro) + synth.numel() * 4
+        b_ms, b_by = bound(nbytes, K2_FLOPS_PER_BIN * C * B * m)
+        print(f"timing: K2 packed batch C={C} m={m} B={B}: kernel "
+              f"device {k:.4f} ms ({C * B / k * 1e3:.4e} samples/s, {nbytes / k / 1e6:.1f} "
+              f"GB/s), bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.1%} of bound; plain device "
+              f"{p:.4f} ms; library: none [{card}]", flush=True)
+        res[key] = (k, p, b_ms, b_by)
+        del pro
+        torch.cuda.empty_cache()
     return res
 
 
@@ -3216,6 +3260,9 @@ def main() -> int:
          "library_ms": None,
          "batch": {"shape": "8x8000 m=1000 packed f32", "ms": b2, "plain_ms": bp2,
                    "bound_ms": bb2, "bound_by": bby2, "library_ms": None},
+         "hop1_cell": {"shape": "8x44100 m=1000 packed f32",
+                       **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                                  times["batch"]["k2_hop1_cell"]))},
          "sharded_by": {p: n[1] for p, n in by_program.items() if n[1]}},
         {"name": "kparts_make", "route": "cuda", "source": src + "kparts.cu",
          "replaces": "scripts/archive/exp_kparts.py:41",

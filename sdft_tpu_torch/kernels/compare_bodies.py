@@ -7,18 +7,23 @@ version of the port, in turns on one card.
 
 DIR holds the other version's package under the name ``sdft_tpu_torch_old``
 (its imports are relative, so it loads beside this one and builds its own
-library).  Each K1,K2 pair builds this version's kernels with those strip
-widths (``-DSDFT_K1_STRIP``, ``-DSDFT_K2_STRIP``; default: the built-in
-4,2).  For K1's five store forms at m = 4096, M = 65536 and for K2 at
-m = 1000, B = 8000 it prints each body's largest difference from the other
-version on the same inputs and the profiler's device time of its kernel,
-in turns (other, pairs, pairs reversed, other), then ``sdft`` on an 8 x
-32768 channel batch (planar f32) of both versions: device time, wall time
-and peak memory above the inputs.  Last (alone with --probes-only) the five
-probes (``kernels.kparts``) at 512 tiles, m = 4096, K = 128, PAD = 64: each
-variant's largest difference from the other version on the same seeded
-inputs and the time per launch between CUDA events (5 launches after 2), in
-turns (other, this, this, other).
+library).  Each K1,K2 pair builds this version's kernels with those bins a
+thread (``-DSDFT_K1_STRIP``, ``-DSDFT_K2_STRIP``; default: the built-in
+4,4; K2 at 2 runs one 2-bin strip a thread instead of two).  It
+prints ptxas's K2 registers, each build's resident blocks per SM and K2's
+wave at each K2 shape.  For K1's five store forms at m = 4096,
+M = 65536, for K2 (packed f32 + y, Hann) at m = 1000 on one channel's and
+8 channels' 8000-sample blocks and on the hop-1 chain cell's 8 x 44100
+block, and for the split of that block (K2 with y alone, no spectra store;
+K1 planar f32, the same 8 bytes a bin without y) it prints each body's
+largest difference from the other version on the same inputs and the
+profiler's device time of its kernels, in turns (other, pairs, pairs
+reversed, other), then ``sdft`` on an 8 x 32768 channel batch (planar f32)
+of both versions: device time, wall time and peak memory above the inputs.
+Last (alone with --probes-only) the five probes (``kernels.kparts``) at 512
+tiles, m = 4096, K = 128, PAD = 64: each variant's largest difference from
+the other version on the same seeded inputs and the time per launch between
+CUDA events (5 launches after 2), in turns (other, this, this, other).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import time
@@ -35,6 +41,35 @@ import torch
 
 FORMS = (("planar", "float32"), ("packed", "float32"), ("planar", "bfloat16"),
          ("power", "float32"), ("power", "bfloat16"))
+#: K2's timed shapes (channels, samples) at m = 1000: one channel's and a
+#: batch's 8000-sample block, and the hop-1 chain cell's 8 x 44100 block
+K2_SHAPES = ((1, 8000), (8, 8000), (8, 44100))
+#: the shape at which K2 is split into y alone and K1 planar f32
+SPLIT = (8, 44100)
+#: samples per tile (kernels.spectra.TILE_K)
+TILE = 128
+
+
+def label(key) -> str:
+    """A timed body's name in the printout."""
+    if key in FORMS:
+        return f"K1 {' '.join(key)} m=4096 1x65536"
+    if key in K2_SHAPES:
+        return f"K2 packed + y m=1000 {key[0]}x{key[1]}"
+    if key == "y only":
+        return f"K2 y only (no spectra) m=1000 {SPLIT[0]}x{SPLIT[1]}"
+    return f"K1 planar float32 m=1000 {SPLIT[0]}x{SPLIT[1]}"
+
+
+def k2_wave(per_sm: int, sms: int, bins: int, m: int, C: int, M: int) -> str:
+    """K2's one wave of resident blocks over (bin chunks of 32 * bins bins,
+    tile groups of 4 tiles; csrc/common.cuh, launch_tiles): the groups each
+    block walks, as a mean and at most."""
+    chunks, nt = -(-m // (32 * bins)), -(-M // TILE)
+    groups = C * -(-nt // 4)
+    grid_y = max(1, min(per_sm * sms // chunks, groups))
+    return (f"{groups} groups over {grid_y} blocks a chunk, {groups / grid_y:.2f} (at most "
+            f"{-(-groups // grid_y)}) a block")
 
 
 def kernel_ms(fn, name: str, reps: int = 10) -> float:
@@ -66,6 +101,7 @@ def build_variant(k1: int, k2: int):
             for s, o in zip(("spectra.cu", "scan.cu"), objs)]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         log = "".join(pool.map(_build._run, cmds))
+    (out / "lib.log").write_text(log)
     so = str(out / "lib.so")
     _build._run([_build.nvcc(), *_build.ARCH, "-shared", "-o", so, *objs])
     lib = ctypes.CDLL(so)
@@ -126,9 +162,9 @@ def main(argv) -> int:
     import sdft_tpu_torch_old as TO
     from sdft_tpu_torch_old.kernels import scan as QO, spectra as SO
 
-    from . import scan as Q, spectra as S
+    from . import _build, scan as Q, spectra as S
 
-    pairs = [tuple(int(a) for a in v.split(",")) for v in argv[1:]] or [(S.STRIP, Q.STRIP)]
+    pairs = [tuple(int(a) for a in v.split(",")) for v in argv[1:]] or [(S.STRIP, Q.BINS)]
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -138,10 +174,19 @@ def main(argv) -> int:
     SO.library()
     libs = {v: build_variant(*v)[0] for v in pairs}
     print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
-    saved = (S.STRIP, Q.STRIP, S.library, Q.library)
+    for v in pairs:
+        entries, _ = _build.ptxas_report(_build.BUILD_DIR / f"strips_{v[0]}_{v[1]}" / "lib.log")
+        regs = {}
+        for name, r, spill, _, _ in entries:
+            k = re.match(r"_ZN4sdft11scan_kernelILi0ELb1ELi(\d)E", name)
+            if k:
+                regs[k.group(1)] = f"{r}/{spill}"
+        print(f"strips {v}: ptxas registers/spill stores of K2 packed f32 by halo: "
+              + ", ".join(f"{h}: {t}" for h, t in sorted(regs.items())), flush=True)
+    saved = (S.STRIP, Q.BINS, S.library, Q.library)
 
     def use(v):
-        S.STRIP, Q.STRIP = v
+        S.STRIP, Q.BINS = v
         S.library = Q.library = lambda: libs[v]
 
     def sig(n, seed):
@@ -151,47 +196,70 @@ def main(argv) -> int:
     def planes(t):
         return t if isinstance(t, tuple) else (t,)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for v, lib in libs.items():
-        print(f"strips {v}: resident blocks/SM at K=128 (hann): K1 "
-              f"{lib.sdft_spectra_occupancy(128)}, K2 {lib.sdft_scan_occupancy(128)}", flush=True)
-    x1, x2 = sig(65536, 7), sig(8000, 8)
+        per_sm = lib.sdft_scan_occupancy(TILE)
+        print(f"strips {v}: resident blocks/SM at K={TILE} (hann): K1 "
+              f"{lib.sdft_spectra_occupancy(TILE)}, K2 {per_sm}; K2 "
+              + ", ".join(f"{C}x{M}: {k2_wave(per_sm, sms, v[1], 1000, C, M)}"
+                          for C, M in K2_SHAPES), flush=True)
+    x1 = sig(65536, 7)
     p1, p1o = (P.Plan(4096, window="hann", precision=P.FAST_PRECISION) for P in (T, TO))
     p2, p2o = (P.Plan(1000, window="hann", precision=P.FAST_PRECISION) for P in (T, TO))
     pro1 = S.spectra_prologue(p1, T.init_state(p1, device=dev), x1)
     pro1o = SO.spectra_prologue(p1o, TO.init_state(p1o, device=dev), x1)
-    pro2 = S.spectra_prologue(p2, T.init_state(p2, device=dev), x2)
-    pro2o = SO.spectra_prologue(p2o, TO.init_state(p2o, device=dev), x2)
     syn, syno = Q.synthesis_row(p2, dev), QO.synthesis_row(p2o, dev)
-    calls = {"other": {f: (lambda f=f: SO.launch_spectra(p1o, pro1o, *f)) for f in FORMS}}
-    calls["other"]["K2"] = lambda: QO.launch_scan(p2o, pro2o, syno, "packed")
-    for v in pairs:
-        calls[v] = {f: (lambda f=f: S.launch_spectra(p1, pro1, *f)) for f in FORMS}
-        calls[v]["K2"] = lambda: Q.launch_scan(p2, pro2, syn, "packed")
+    pro2, pro2o = {}, {}
+    for C, M in K2_SHAPES:
+        x = sig(C * M, 8 + C).reshape((C, M) if C > 1 else (M,))
+        ch = {"channels": C} if C > 1 else {}
+        pro2[C, M] = S.spectra_prologue(p2, T.init_state(p2, device=dev, **ch), x)
+        pro2o[C, M] = SO.spectra_prologue(p2o, TO.init_state(p2o, device=dev, **ch), x)
+    keys = (*FORMS, *K2_SHAPES, "y only", "K1 planar")
+    calls = {}
+    for who, SS, QQ, pa, pb, pr1, pr2, sy in (
+            ("other", SO, QO, p1o, p2o, pro1o, pro2o, syno),
+            ("this", S, Q, p1, p2, pro1, pro2, syn)):
+        c = {f: (lambda f=f, SS=SS, pa=pa, pr1=pr1: SS.launch_spectra(pa, pr1, *f))
+             for f in FORMS}
+        for k in K2_SHAPES:
+            c[k] = lambda k=k, QQ=QQ, pb=pb, pr2=pr2, sy=sy: QQ.launch_scan(pb, pr2[k], sy,
+                                                                            "packed")
+        c["y only"] = lambda QQ=QQ, pb=pb, pr2=pr2, sy=sy: (
+            QQ.launch_scan(pb, pr2[SPLIT], sy, None)[1])
+        c["K1 planar"] = lambda SS=SS, pb=pb, pr2=pr2: SS.launch_spectra(
+            pb, pr2[SPLIT], "planar", "float32")
+        calls[who] = c
     for v in pairs:
         use(v)
-        for key in (*FORMS, "K2"):
-            got, want = planes(calls[v][key]()), planes(calls["other"][key]())
-            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-            print(f"strips {v} {' '.join(key) if key != 'K2' else 'K2 spectra'}: largest "
-                  f"difference from the other version {err:.3e}", flush=True)
-        _, y = Q.launch_scan(p2, pro2, syn, "packed")
-        _, yo = QO.launch_scan(p2o, pro2o, syno, "packed")
-        print(f"strips {v} K2 y: largest difference {(y - yo).abs().max().item():.3e}", flush=True)
+        for key in keys:
+            got, want = calls["this"][key](), calls["other"][key]()
+            if key in K2_SHAPES:
+                (got, y), (want, yo) = got, want
+                print(f"strips {v} {label(key)}: largest difference from the other version: "
+                      f"spectra {(got - want).abs().max().item():.3e}, y "
+                      f"{(y - yo).abs().max().item():.3e}", flush=True)
+                continue
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(planes(got), planes(want)))
+            print(f"strips {v} {label(key)}: largest difference from the other version "
+                  f"{err:.3e}", flush=True)
+            del got, want
     order = ["other", *pairs]
     times = {}
     for who in order + order[::-1]:
         if who != "other":
             use(who)
-        for key in (*FORMS, "K2"):
-            name = "scan_kernel" if key == "K2" else "spectra_kernel"
+        fns = calls["other" if who == "other" else "this"]
+        for key in keys:
+            k1 = key in FORMS or key == "K1 planar"
             times.setdefault((who, key), []).append(
-                kernel_ms(calls[who][key], name, 20 if key == "K2" else 10))
-    print(f"device ms, in turns {' '.join(map(str, order + order[::-1]))} (K1 m=4096 "
-          f"M=65536, K2 m=1000 B=8000) [{card}]", flush=True)
-    for key in (*FORMS, "K2"):
-        print(f"  {' '.join(key) if key != 'K2' else 'K2 packed + y'}: " + "; ".join(
+                kernel_ms(fns[key], "spectra_kernel" if k1 else "scan_kernel", 10 if k1 else 20))
+    print(f"device ms, in turns {' '.join(map(str, order + order[::-1]))} [{card}]", flush=True)
+    for key in keys:
+        print(f"  {label(key)}: " + "; ".join(
             f"{w} {'/'.join(f'{t:.4f}' for t in times[(w, key)])}" for w in order), flush=True)
-    del pro1, pro1o
+    del pro1, pro1o, pro2, pro2o, calls
 
     use(pairs[0])
     C, M = 8, 32768
@@ -219,7 +287,7 @@ def main(argv) -> int:
         print(f"sdft C={C} M={M} planar f32, {who} version: device {d:.4f} ms, wall "
               f"{a.elapsed_time(b) / 3:.4f} ms, peak {peak / 2**30:.3f} GiB above the "
               f"inputs [{card}]", flush=True)
-    S.STRIP, Q.STRIP, S.library, Q.library = saved
+    S.STRIP, Q.BINS, S.library, Q.library = saved
     del batch, st, sto, xs
     torch.cuda.empty_cache()
     compare_probes(dev, card)

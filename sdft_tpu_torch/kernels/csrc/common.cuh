@@ -37,16 +37,21 @@
 // phasors and carry are zero, so their aux is zero, and so are their guards;
 // an output bin outside the ROI has zero window taps.
 //
-// Geometry.  A thread owns a strip of V consecutive bins (K1_STRIP = 4 for
-// K1, K2_STRIP = 2 for K2) and runs their V independent running sums, so it
-// has V-way instruction-level parallelism and no thread is a guard.  A
-// warp's 32 strips are one chunk of 32*V output bins, so every chunk of
-// every store form starts on a 128-byte line.  The window stencil reads
-// inner neighbours from the thread's own registers and the strip edges
-// from lanes -1 and +1 by warp shuffles; the chunk's edges come from guard
-// slots: every lane runs HALO extra recurrences, those of lanes 0-15 for
-// the bins left of the chunk and those of lanes 16-31 for the bins right of
-// it, and lane 0 and lane 31 read them.  So aux never touches shared memory
+// Geometry.  A thread owns V bins in strips of SEG consecutive bins, 32*SEG
+// bins apart (K1: one strip of K1_STRIP = 4; K2: two strips of K2_STRIP =
+// 2, scan.cu), and runs their V independent running
+// sums, so it has V-way instruction-level parallelism and no thread is a
+// guard.  A warp's strips are one chunk of 32*V output bins, so every chunk
+// of every store form starts on a 128-byte line, and each store
+// instruction of a warp writes one strip of each of its lanes: 32*SEG
+// contiguous elements.  The window stencil reads inner neighbours from the
+// thread's own registers and the strip edges from lanes -1 and +1 by warp
+// shuffles (rotated across the warp where a lane has several strips, so
+// lane 0 and lane 31 read their other strips' neighbours from lane 31 and
+// lane 0); the chunk's edges come from guard slots: every lane runs HALO
+// extra recurrences, those of lanes 0-15 for the bins left of the chunk
+// and those of lanes 16-31 for the bins right of it, and lane 0 and lane
+// 31 read them.  So aux never touches shared memory
 // and no block barrier runs inside the tile loop.  A block's WARPS warps
 // share one chunk, and its phasor rows, loaded once under the block's only
 // barrier, and walk different tiles: those of every channel of a batch, one
@@ -99,20 +104,23 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-// Bins per thread of K1 and of K2 (spectra.py and scan.py: STRIP, which
-// must match).  -DSDFT_K1_STRIP=2 or 8 (and SDFT_K2_STRIP) builds another
-// width for kernels/compare_bodies.py.
+// Bins per thread of K1 and of K2 (spectra.py: STRIP and scan.py: BINS,
+// which must match).  -DSDFT_K1_STRIP=2 or 8 (and SDFT_K2_STRIP=2 or 8)
+// builds another width for kernels/compare_bodies.py.
 #ifndef SDFT_K1_STRIP
 #define SDFT_K1_STRIP 4
 #endif
 #ifndef SDFT_K2_STRIP
-#define SDFT_K2_STRIP 2
+#define SDFT_K2_STRIP 4
 #endif
 
 namespace sdft {
 
 constexpr int K1_STRIP = SDFT_K1_STRIP;
-constexpr int K2_STRIP = SDFT_K2_STRIP;  // K2's hop=1 blocks are small
+// K2: each thread's K2_BINS bins lie in 2-bin strips (K2_STRIP, one 16-byte
+// packed store a row), 64 bins apart (scan.cu)
+constexpr int K2_STRIP = 2;
+constexpr int K2_BINS = SDFT_K2_STRIP;
 constexpr int WARPS = 4;     // warps per block, one bin chunk, different tiles
 constexpr int FINE = 8;      // rows per coarse phasor
 constexpr int MAX_HALO = 2;  // Blackman's two-bin stencil
@@ -303,18 +311,61 @@ __device__ __forceinline__ bool source_bin(const TileArgs& a, int p, int& s, boo
 // T^(8c), then the seven fine rows T^b, b = 1..7.
 __device__ __forceinline__ int table_row(int r, int nc) { return r < nc ? r * FINE : r - nc + 1; }
 
+// A strip-edge neighbour from lane - 1 (lane + 1).  With one strip a lane,
+// lane 0 (31) keeps its own value, which the caller replaces by a guard; with
+// several the lanes rotate, so lane 0 (31) reads lane 31's (0's) value of
+// the same strip index, which is the neighbour of its next (previous) strip.
+template <int NSTRIP>
+__device__ __forceinline__ float2 from_prev(float2 v, int lane) {
+  if constexpr (NSTRIP == 1)
+    return make_float2(__shfl_up_sync(FULL, v.x, 1), __shfl_up_sync(FULL, v.y, 1));
+  return make_float2(__shfl_sync(FULL, v.x, (lane + 31) & 31),
+                     __shfl_sync(FULL, v.y, (lane + 31) & 31));
+}
+
+template <int NSTRIP>
+__device__ __forceinline__ float2 from_next(float2 v, int lane) {
+  if constexpr (NSTRIP == 1)
+    return make_float2(__shfl_down_sync(FULL, v.x, 1), __shfl_down_sync(FULL, v.y, 1));
+  return make_float2(__shfl_sync(FULL, v.x, (lane + 1) & 31),
+                     __shfl_sync(FULL, v.y, (lane + 1) & 31));
+}
+
+// Lane-1 (lane+1) values of each strip h as the left (right) neighbours of
+// the strips' edges: lane 0's left neighbour of strip h > 0 is lane 31's
+// last bin of strip h-1, which the rotation handed lane 0 in slot h-1, and
+// the chunk's own edges take the guard g.
+template <int NSTRIP>
+__device__ __forceinline__ void edge_left(float2 (&l)[NSTRIP], float2 g, int lane) {
+#pragma unroll
+  for (int h = NSTRIP - 1; h >= 1; --h)
+    if (lane == 0) l[h] = l[h - 1];
+  if (lane == 0) l[0] = g;
+}
+
+template <int NSTRIP>
+__device__ __forceinline__ void edge_right(float2 (&r)[NSTRIP], float2 g, int lane) {
+#pragma unroll
+  for (int h = 0; h + 1 < NSTRIP; ++h)
+    if (lane == 31) r[h] = r[h + 1];
+  if (lane == 31) r[NSTRIP - 1] = g;
+}
+
 // The body both kernels run.  With EMIT_Y, every row's spectrum is also
 // reduced against the synthesis row over the warp's chunk of bins:
-// y[chunk * C*M + c*M + k] = y_scale * sum_{i in chunk} (Re out[c,k,i] *
-// Re s[i] - Im out[c,k,i] * Im s[i]), one plain store per row and warp (each
+// y[(chunk * C + c) * y_rows + k] = y_scale * sum_{i in chunk} (Re out[c,k,i]
+// * Re s[i] - Im out[c,k,i] * Im s[i]), one plain store per row and warp (each
 // (chunk, channel, row) has exactly one writer); scan.cu adds the chunks in
-// order.
-template <int V, int HALO, int STORE, bool EMIT_Y, bool VEC>
+// order.  A warp stores eight consecutive rows at once, so with y_rows a
+// multiple of 8 every such store fills one 32-byte sector.
+template <int V, int SEG, int HALO, int STORE, bool EMIT_Y, bool VEC>
 __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void* out1,
                                               const float2* synth, float* y,
-                                              float y_scale) {
-  static_assert(V == 2 || V == 4 || V == 8, "strip width");
+                                              float y_scale, int y_rows) {
+  static_assert(V == 2 || V == 4 || V == 8, "bins per thread");
+  static_assert(SEG >= 2 && V % SEG == 0, "strip width");
   static_assert(HALO >= 0 && HALO <= MAX_HALO, "window halo");
+  constexpr int NSTRIP = V / SEG;  // strips a lane, 32 * SEG bins apart
   extern __shared__ float4 smem_raw[];
   const int nc = a.K / FINE + 1, nr = nc + FINE - 1;
   float4* ph = smem_raw;                                                    // [nr][V/2][32]
@@ -322,17 +373,18 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* dl = reinterpret_cast<float*>(gph + (size_t)nr * 2 * MAX_HALO) + warp * a.K;
 
-  // This lane's strip: signed bins p0 .. p0+V-1, each computed from source
-  // bin src[j] (bit j of live: accumulated; of cj: conjugated; of keep: an
-  // output bin inside the ROI).
+  // This lane's strips: strip h holds signed bins p0 + 32*SEG*h .. +SEG-1,
+  // its j-th bin strip_bin(j); each is computed from source bin src[j] (bit
+  // j of live: accumulated; of cj: conjugated; of keep: an output bin
+  // inside the ROI).
   const int first = blockIdx.x * chunk_bins(V);
-  const int p0 = first + lane * V;
-  const bool out_lane = p0 < a.m;
+  const int p0 = first + lane * SEG;
+  const auto strip_bin = [p0](int j) { return p0 + (j / SEG) * 32 * SEG + j % SEG; };
   int src[V];
   unsigned live = 0, cj = 0, keep = 0;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    const int p = p0 + j;
+    const int p = strip_bin(j);
     bool c;
     live |= (unsigned)source_bin(a, p, src[j], c) << j;
     cj |= (unsigned)c << j;
@@ -384,7 +436,7 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
   float2 s_i[V];
 #pragma unroll
   for (int j = 0; j < V; ++j)
-    s_i[j] = EMIT_Y && p0 + j < a.m ? __ldg(&synth[p0 + j]) : make_float2(0.f, 0.f);
+    s_i[j] = EMIT_Y && strip_bin(j) < a.m ? __ldg(&synth[strip_bin(j)]) : make_float2(0.f, 0.f);
   __syncthreads();
 
   // The tile groups of the whole batch, channel by channel: group g is
@@ -413,6 +465,7 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
     const int rows = tg * WARPS + warp >= a.nt ? 0 : (a.M - row0 < a.K ? (int)(a.M - row0) : a.K);
     const size_t crow0 = (size_t)ch * a.M + row0;  // row k0 = 0 in the batch's rows
     size_t idx = crow0 * a.m + p0;  // the strip's first bin in row k0
+    float* yrow = EMIT_Y ? y + ((size_t)blockIdx.x * a.C + ch) * y_rows + row0 : nullptr;
     for (int k0 = 0; k0 < a.K; k0 += FINE, idx += (size_t)FINE * a.m) {
       const int c = k0 / FINE;
       float2 cc[V], f[V], gcc[MAX_HALO], gf[MAX_HALO];
@@ -455,25 +508,34 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
         }
         // window stencil: strip-edge neighbours from lanes -1 and +1, the
         // chunk's edges from the guard slots
-        float2 l1 = e[0], r1 = e[0], l2 = e[0], r2 = e[0];
+        float2 l1[NSTRIP], r1[NSTRIP], l2[NSTRIP], r2[NSTRIP];
+#pragma unroll
+        for (int h = 0; h < NSTRIP; ++h) l1[h] = r1[h] = l2[h] = r2[h] = e[0];
         if constexpr (HALO >= 1) {
-          l1 = make_float2(__shfl_up_sync(FULL, e[V - 1].x, 1), __shfl_up_sync(FULL, e[V - 1].y, 1));
-          r1 = make_float2(__shfl_down_sync(FULL, e[0].x, 1), __shfl_down_sync(FULL, e[0].y, 1));
-          if (lane == 0) l1 = ge[0];
-          if (lane == 31) r1 = ge[0];
+#pragma unroll
+          for (int h = 0; h < NSTRIP; ++h) {
+            l1[h] = from_prev<NSTRIP>(e[h * SEG + SEG - 1], lane);
+            r1[h] = from_next<NSTRIP>(e[h * SEG], lane);
+          }
+          edge_left<NSTRIP>(l1, ge[0], lane);
+          edge_right<NSTRIP>(r1, ge[0], lane);
         }
         if constexpr (HALO >= 2) {
-          l2 = make_float2(__shfl_up_sync(FULL, e[V - 2].x, 1), __shfl_up_sync(FULL, e[V - 2].y, 1));
-          r2 = make_float2(__shfl_down_sync(FULL, e[1].x, 1), __shfl_down_sync(FULL, e[1].y, 1));
-          if (lane == 0) l2 = ge[1];
-          if (lane == 31) r2 = ge[1];
+#pragma unroll
+          for (int h = 0; h < NSTRIP; ++h) {
+            l2[h] = from_prev<NSTRIP>(e[h * SEG + SEG - 2], lane);
+            r2[h] = from_next<NSTRIP>(e[h * SEG + 1], lane);
+          }
+          edge_left<NSTRIP>(l2, ge[1], lane);
+          edge_right<NSTRIP>(r2, ge[1], lane);
         }
         float2 o[V];
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          const float2 am1 = j >= 1 ? e[j - 1] : l1, ap1 = j + 1 < V ? e[j + 1] : r1;
-          const float2 am2 = j >= 2 ? e[j - 2] : (j == 1 ? l1 : l2);
-          const float2 ap2 = j + 2 < V ? e[j + 2] : (j + 2 == V ? r1 : r2);
+          const int h = j / SEG, i = j % SEG;
+          const float2 am1 = i >= 1 ? e[j - 1] : l1[h], ap1 = i + 1 < SEG ? e[j + 1] : r1[h];
+          const float2 am2 = i >= 2 ? e[j - 2] : (i == 1 ? l1[h] : l2[h]);
+          const float2 ap2 = i + 2 < SEG ? e[j + 2] : (i + 2 == SEG ? r1[h] : r2[h]);
           float ox = tw[j][0] * e[j].x, oy = tw[j][0] * e[j].y;
           if constexpr (HALO >= 1) {
             ox += tw[j][1] * (am1.x + ap1.x);
@@ -486,15 +548,23 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
           o[j] = make_float2(ox, oy);
           if (EMIT_Y) yv[b] += ox * s_i[j].x - oy * s_i[j].y;
         }
-        if (out_lane && k0 + b < rows)
-          store_strip<V, STORE, VEC>(out0, out1, idx + (size_t)b * a.m, o,
-                                     a.m - p0);
+#pragma unroll
+        for (int h = 0; h < NSTRIP; ++h) {
+          const int ph = p0 + h * 32 * SEG;
+          if (ph < a.m && k0 + b < rows) {
+            float2 oh[SEG];
+#pragma unroll
+            for (int i = 0; i < SEG; ++i) oh[i] = o[h * SEG + i];
+            store_strip<SEG, STORE, VEC>(out0, out1, idx + (size_t)b * a.m + h * 32 * SEG, oh,
+                                         a.m - ph);
+          }
+        }
       }
       if constexpr (EMIT_Y) {
         const float v = warp_sum8(yv, lane);
         const int r = row_of_lane(lane);
         if ((lane & 3) == 0 && k0 + r < rows)
-          y[(size_t)blockIdx.x * a.C * a.M + crow0 + k0 + r] = y_scale * v;
+          yrow[k0 + r] = y_scale * v;
       }
     }
   }
@@ -506,12 +576,12 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
 // blocks, each walking every gridDim.y-th group of its chunk.  The channels
 // fold into the groups rather than into gridDim.z, so a block fills its
 // phasor rows once for all of them.
-template <int V, typename Kernel, typename... Args>
+template <int V, int SEG = V, typename Kernel, typename... Args>
 int launch_tiles(Kernel kernel, const TileArgs& a, bool vec, cudaStream_t stream,
                  Args... args) {
   if (a.K <= 0 || a.K % FINE || a.K > MAX_K || a.halo < 0 || a.halo > MAX_HALO ||
       a.m < MAX_HALO + 1 || a.nt <= 0 || a.M <= 0 || (long long)a.nt * a.K < a.M ||
-      a.C <= 0 || (long long)a.C * ((a.nt + WARPS - 1) / WARPS) > 0x7fffffff || (vec && a.m % V))
+      a.C <= 0 || (long long)a.C * ((a.nt + WARPS - 1) / WARPS) > 0x7fffffff || (vec && a.m % SEG))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(V, a.K);
   cudaError_t err = cudaFuncSetAttribute(

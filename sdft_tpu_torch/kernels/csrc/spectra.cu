@@ -37,7 +37,8 @@ namespace sdft {
 template <int STORE, bool VEC, int HALO>
 __global__ void __launch_bounds__(WARPS * 32)
 spectra_kernel(TileArgs a, void* out0, void* out1) {
-  spectra_tiles<K1_STRIP, HALO, STORE, false, VEC>(a, out0, out1, nullptr, nullptr, 0.f);
+  spectra_tiles<K1_STRIP, K1_STRIP, HALO, STORE, false, VEC>(a, out0, out1, nullptr, nullptr, 0.f,
+                                                          0);
 }
 
 template <int STORE, bool VEC>

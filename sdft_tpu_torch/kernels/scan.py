@@ -8,7 +8,7 @@ The TPU kernel carries the accumulator from one grid step to the next; the
 port derives every tile's carry up front with K1's prologue
 (``spectra.spectra_prologue``), and the kernel (csrc/scan.cu) adds the
 synthesis reduction y = 2 * (Re out . Re s - Im out . Im s) to K1's tile
-body.  Each bin chunk's partial row sums go to a scratch buffer and a
+body, with two 2-bin strips a thread.  Each bin chunk's partial row sums go to a scratch buffer and a
 second small kernel adds them in chunk order, so y repeats bit for bit
 from launch to launch.  The next accumulator comes from the same prologue.
 
@@ -20,8 +20,6 @@ included (``graphs``); under a profiler each launch lies in a span
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -37,12 +35,30 @@ from .spectra import (Prologue, allocate, emit, fill, launch_args, reference_spe
 
 #: store codes of csrc/common.cuh (enum Store) that the scan kernel takes
 STORES = {"packed": 0, "planar": 1, None: 5}
-#: consecutive bins each K2 thread owns (csrc/common.cuh: K2_STRIP): half
-#: K1's, so the small blocks of the hop=1 chain fill the card
+#: consecutive bins of one K2 strip (csrc/common.cuh: K2_STRIP), one 16-byte
+#: packed store a row
 STRIP = 2
+#: bins each K2 thread owns (csrc/common.cuh: K2_BINS): two strips 64 bins
+#: apart, so each store instruction of a warp writes 512 contiguous bytes
+#: while the guard recurrences, y butterflies and partial rows of y a bin
+#: are half those of one strip a thread
+BINS = 4
 
 #: launches of the CUDA kernel (the plain version does not count)
 LAUNCHES = 0
+
+
+def y_chunks(m: int) -> int:
+    """Bin chunks of a launch, 32 * BINS bins each: the first axis of its
+    partial row sums (csrc/scan.cu checks the count)."""
+    return -(-m // (32 * BINS))
+
+
+def y_rows(M: int) -> int:
+    """A channel's rows in the partial row sums: M rounded up to a 128-byte
+    line, so that every eight rows a warp stores fill one 32-byte sector
+    whatever M is (csrc/scan.cu checks y_rows >= M, a multiple of 8)."""
+    return -(-M // 32) * 32
 
 
 @graphs.cached(maxsize=16)
@@ -106,13 +122,13 @@ def launch_scan(plan: Plan, pro: Prologue, synth: torch.Tensor,
     # each chunk's partial row sums, added in chunk order by the second
     # kernel of the launch (csrc/scan.cu: y in a fixed order); the launch
     # refuses a row count other than its build's chunk count
-    y_part = torch.empty((-(-m // (32 * STRIP)), math.prod(pro.lead)), dtype=torch.float32,
-                         device=dev)
+    y_part = torch.empty((y_chunks(m), pro.c0.shape[0], y_rows(pro.M)),
+                         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_scan_launch(
             *args[:3], synth.data_ptr(), p0, p1, y_part.data_ptr(), y_part.shape[0],
-            y.data_ptr(), *args[3:],
+            y_part.shape[2], y.data_ptr(), *args[3:],
             plan.synthesis_weight, STORES[layout], int(vector_stores(m, STRIP)), stream)
     check(err, "sdft_scan_launch")
     LAUNCHES += 1

@@ -354,6 +354,34 @@ def test_k2_strip_choice(m, want):
     assert spectra.vector_stores(m, scan.STRIP) is want
 
 
+def _header_int(name):
+    src = (_build.CSRC / "common.cuh").read_text()
+    return int(re.search(rf"(?:#define|constexpr int) {name}\s*=?\s*(\d+)", src).group(1))
+
+
+@pytest.mark.parametrize("m,chunks", [(1000, 8), (1024, 8), (129, 2), (128, 1), (4096, 32)])
+def test_k2_y_part_matches_the_build(m, chunks):
+    """The wrapper's strip and bins a thread are the build's (csrc/common.cuh:
+    K2_STRIP, the default SDFT_K2_STRIP that K2_BINS takes), so its y_part
+    has one row per chunk of 32 * BINS bins, the count the launch checks."""
+    assert scan.STRIP == _header_int("K2_STRIP") == 2
+    assert scan.BINS == _header_int("SDFT_K2_STRIP") == 4
+    assert "constexpr int K2_BINS = SDFT_K2_STRIP;" in (_build.CSRC / "common.cuh").read_text()
+    assert scan.y_chunks(m) == chunks == -(-m // (32 * scan.BINS))
+    assert "y_chunks != (m + chunk_bins(K2_BINS) - 1) / chunk_bins(K2_BINS)" in (
+        _build.CSRC / "scan.cu").read_text()
+
+
+@pytest.mark.parametrize("M,want", [(44100, 44128), (8000, 8000), (777, 800), (1, 32)])
+def test_k2_y_rows_fill_whole_sectors(M, want):
+    """A channel's rows of the partial row sums: M up to a 128-byte line,
+    so every eight rows a warp stores start on a 32-byte sector; the launch
+    refuses fewer than M or a count that is no multiple of 8."""
+    assert scan.y_rows(M) == want and want >= M and want % 32 == 0
+    src = (_build.CSRC / "scan.cu").read_text()
+    assert "y_rows < M" in src and "y_rows % 8" in src
+
+
 def test_allocate_validates_in_place_outputs():
     _, tp = _plans(256)
     pro = spectra.spectra_prologue(tp, T.init_state(tp, device="cpu"),
@@ -622,8 +650,9 @@ def test_cuda_every_store_form_and_k2_match_plain_versions(cuda_device, m, windo
     """Every K1 store form and K2 against the plain versions at a ragged M
     (a multiple of neither K nor 16): f32 atol 2e-6, bf16 one rounding
     (2^-8 relative) on top, y 1e-5 (the chunks' sums in another order).
-    Packed f32 equals planar f32 bit for bit; power f32 equals re*re +
-    im*im of the planar f32 output to 1 ulp."""
+    Packed f32 equals planar f32 bit for bit, and K2's spectra equal K1's
+    packed f32 bit for bit; power f32 equals re*re + im*im of the planar
+    f32 output to 1 ulp."""
     roi = _card_rois(m)[roi_case]
     tp = T.Plan(m, window=window, roi=roi, latency=0.5, precision=T.FAST_PRECISION)
     st, _ = T.sdft(tp, T.init_state(tp, device=cuda_device),
@@ -652,6 +681,7 @@ def test_cuda_every_store_form_and_k2_match_plain_versions(cuda_device, m, windo
         dr, yr = scan.forward_and_y_reference(tp, pro, synth, layout)
         if layout == "packed":
             torch.testing.assert_close(dk, dr, atol=2e-6, rtol=0.0)
+            assert torch.equal(dk, packed)  # K2's bins run K1's recurrence and stencil
             k2_packed = dk
         elif layout == "planar":
             assert torch.equal(dk[0], k2_packed[..., 0]) and torch.equal(dk[1], k2_packed[..., 1])
@@ -661,7 +691,7 @@ def test_cuda_every_store_form_and_k2_match_plain_versions(cuda_device, m, windo
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,window,M", [(1000, "hann", 8000), (4096, "blackman", 2 * 128 + 37),
-                                        (129, "boxcar", 777)])
+                                        (129, "boxcar", 777), (1000, "hann", 44100)])
 def test_cuda_k2_y_is_deterministic(cuda_device, m, window, M):
     """Two K2 launches on the same inputs give the same y and spectra bit
     for bit (the chunks' partial rows are added in a fixed order), on one
@@ -683,6 +713,29 @@ def test_cuda_k2_y_is_deterministic(cuda_device, m, window, M):
     for d, y in runs[1:]:
         assert torch.equal(y, runs[0][1]) and torch.equal(d, runs[0][0])
     assert torch.equal(scan.launch_scan(tp, prob, synth, None)[1], runs[0][1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_k2_at_the_hop1_cells_block(cuda_device):
+    """The hop-1 chain cell's block, 8 x 44100 at m = 1000, Hann, in one
+    launch: spectra within 2e-6 of the plain version and bit for bit K1's
+    packed spectra on the same prologue (each bin runs the same recurrence
+    and stencil in both), y within 1e-5 of the plain version; planar equals
+    packed and y is the same in every form."""
+    tp = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+    x = torch.as_tensor(_signal(8 * 44100, 6).reshape(8, 44100), device=cuda_device)
+    pro = spectra.spectra_prologue(tp, T.init_state(tp, channels=8, device=cuda_device), x)
+    synth = scan.synthesis_row(tp, cuda_device)
+    dk, yk = scan.launch_scan(tp, pro, synth, "packed")
+    assert torch.equal(dk, spectra.launch_spectra(tp, pro, "packed", "float32"))
+    dr, yr = scan.forward_and_y_reference(tp, pro, synth, "packed")
+    torch.testing.assert_close(dk, dr, atol=2e-6, rtol=0.0)
+    torch.testing.assert_close(yk, yr, atol=1e-5, rtol=0.0)
+    del dr
+    (re_, im_), yp = scan.launch_scan(tp, pro, synth, "planar")
+    assert torch.equal(re_, dk[..., 0]) and torch.equal(im_, dk[..., 1])
+    assert torch.equal(yp, yk) and torch.equal(scan.launch_scan(tp, pro, synth, None)[1], yk)
     torch.cuda.synchronize()
 
 
