@@ -30,8 +30,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
                float64 and the per-channel calls;
                ``roundtrip_hopped(hop=1)`` at m = 1000 over 4 blocks of
                8000 samples, and over 2 blocks of 2 channels x 4000 (one
-               K2 and one carry launch per block).  K1, K2 and the carry
-               kernel must have been launched;
+               K2 and one carry launch per block); K1 at m = 1000 on a
+               ragged 2-channel batch in every store form, each call one
+               launch, paced (``kernels.spectra.PACED_LAUNCHES``) in the
+               paced forms, held to the plain version and, paced, bit for
+               bit to the unpaced launch.
+               K1, K2 and the carry kernel must have been launched;
      b. driver ``roundtrip`` without a transform (the collapsed LTI form)
                at the flagship size; with ``mxu="split4"`` at m = 4096 on
                1 x 65536 and 8 x 32768 (within 5e-4 of float64, unequal
@@ -153,8 +157,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (its library yardstick, held against K1's spectra); ``sdft``
                on 8 channels of 32768 (one launch; device, wall, peak
                memory), its prologue and K1 beside the bound, the plain
-               version and torch.stft on the same batch; K2 on 8 channels
-               of 8000 at m = 1000 beside its bound; the
+               version and torch.stft on the same batch; K1 planar f32 on
+               the spectra cell's 8 x 44100 at m = 1000, paced (one paced
+               launch, held to the plain version and bit for bit to the
+               unpaced launch), beside its bound, the unpaced launch and
+               the plain version (``k1_spectra_cell`` in the kernels line);
+               K2 on 8 channels of 8000 and 8 x 44100 at m = 1000 beside
+               its bound; the
                collapsed round trip for k_tile in {128, 256, 512, 1024} at
                m = 4096 on 65536-sample blocks and on 8 channels of 32768,
                exact FP32, "high" and split4, each with its error against
@@ -192,6 +201,7 @@ The line before the last is a JSON summary of the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -329,6 +339,7 @@ def main_path(T, dev) -> dict:
         gate(f"sdft m={m} {window} latency 0.5 roi vs f64 / scale",
              maxerr(got, ref) / scale, 3e-6)
 
+    errs["k1_paced"] = paced_path(T, dev)
     errs.update(batch_path(T, dev))
 
     # -- K2: the hop=1 driver chain
@@ -353,6 +364,65 @@ def main_path(T, dev) -> dict:
         if not torch.isfinite(t).all():
             raise AssertionError(f"hop=1 {name} not finite")
     return errs
+
+
+def paced_path(T, dev) -> float:
+    """Part a, K1 at m = 1000, where every store form's rows split 256-byte
+    units: each cached ``sdft``/``sdft_power`` call on a ragged 2-channel
+    batch is one K1 launch, paced (``PACED_LAUNCHES``) exactly in the paced
+    forms (``kernels.spectra.paced``); every form on that batch's prologue
+    held to the plain version (``hold_k1``), and each paced form equal bit
+    for bit to its unpaced launch.  Returns the f32 forms' largest
+    error."""
+    from sdft_tpu_torch.kernels import spectra as S
+
+    plan = T.Plan(1000, window="hann", precision=T.FAST_PRECISION)
+    C, M = 2, 4000 + 37
+    x = signal(C * M, SEED + 47, dev).reshape(C, M)
+    st = T.init_state(plan, channels=C, device=dev)
+    calls = {("packed", "float32"): lambda: T.sdft(plan, st, x),
+             ("planar", "float32"): lambda: T.sdft(plan, st, x, "planar"),
+             ("planar", "bfloat16"): lambda: T.sdft(plan, st, x, "planar", "bfloat16"),
+             ("power", "float32"): lambda: T.sdft_power(plan, st, x),
+             ("power", "bfloat16"): lambda: T.sdft_power(plan, st, x, "bfloat16")}
+    paced = [f for f in calls if S.paced(1000, *f)]
+    if not paced:
+        raise AssertionError("no store form is paced at m = 1000")
+    for f, call in calls.items():
+        call()    # the first call captures the prologue's graph
+        n, p = S.LAUNCHES, S.PACED_LAUNCHES
+        call()
+        if (S.LAUNCHES - n, S.PACED_LAUNCHES - p) != (1, int(f in paced)):
+            raise AssertionError(f"{' '.join(f)} m=1000 {C}x{M}: {S.LAUNCHES - n} K1 launches, "
+                                 f"{S.PACED_LAUNCHES - p} paced; expected 1 and {int(f in paced)}")
+    pro = S.spectra_prologue(plan, st, x)
+    p = S.PACED_LAUNCHES
+    err = hold_k1(S, plan, pro, f" m=1000 {C}x{M}")
+    if S.PACED_LAUNCHES - p != len(paced) * (C + 1):
+        raise AssertionError(f"K1 m=1000: {S.PACED_LAUNCHES - p} paced launches in hold_k1, "
+                             f"expected {len(paced) * (C + 1)}")
+    with pacing(S, False):
+        unpaced = {f: S.launch_spectra(plan, pro, *f) for f in paced}
+    for f, want in unpaced.items():
+        got = S.launch_spectra(plan, pro, *f)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,))):
+            raise AssertionError(f"K1 {' '.join(f)} m=1000: paced differs from unpaced")
+    print(f"  K1 m=1000 {C}x{M}: paced in {', '.join(' '.join(f) for f in paced)}, each bit "
+          f"for bit its unpaced launch (kernels.spectra.paced_launches {S.PACED_LAUNCHES} of "
+          f"{S.LAUNCHES} launches)", flush=True)
+    return err
+
+
+@contextlib.contextmanager
+def pacing(S, on: bool):
+    """``kernels.spectra.paced`` forced to ``on`` inside the block."""
+    rule, S.paced = S.paced, lambda *args: on
+    try:
+        yield
+    finally:
+        S.paced = rule
 
 
 def desynchronized(T, plan, C: int, dev):
@@ -1225,8 +1295,9 @@ def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 3
     device memory above the inputs is the 8 GiB of spectra, not twice
     that; its device and wall time, the prologue's and K1's device times,
     K1's bound, its plain version and torch.stft on the same batch.  Then
-    K2 on 8 channels x 8000 and on the hop-1 chain cell's 8 x 44100 at
-    m = 1000 beside its bound."""
+    K1 on the spectra cell's block (``k1_cell_timing``), and K2 on 8
+    channels x 8000 and on the hop-1 chain cell's 8 x 44100 at m = 1000
+    beside its bound."""
     res = {}
     plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
     st = T.init_state(plan, channels=C, device=dev)
@@ -1275,6 +1346,7 @@ def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 3
           flush=True)
     lib = stft_beside_k1(T, plan, xs, card)
     res["k1"] = (k, plain, b_ms, b_by, lib, t_pro)
+    res["k1_spectra_cell"] = k1_cell_timing(T, S, dev, card, C)
 
     m = 1000
     plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
@@ -1296,6 +1368,61 @@ def batch_timings(T, S, Q, dev, card: str, m: int = 4096, C: int = 8, M: int = 3
         del pro
         torch.cuda.empty_cache()
     return res
+
+
+def k1_cell_timing(T, S, dev, card: str, C: int = 8, M: int = 44100) -> tuple:
+    """K1 planar f32 on the spectra cell's C x M block at m = 1000, the
+    shape and form the main path runs paced: with ``PACED_LAUNCHES`` zeroed,
+    one launch is one paced launch, held to the plain version at 2e-6 and
+    bit for bit to the unpaced launch (``pacing``), which counts none; the
+    device times of the paced launch, the unpaced one and the plain version
+    beside K1's bound.  Returns (ms, plain ms, bound ms, bound by, unpaced
+    ms)."""
+    m, form = 1000, ("planar", "float32")
+    if not S.paced(m, *form):
+        raise AssertionError(f"K1 {' '.join(form)} m={m} is not paced")
+    plan = T.Plan(m, window="hann", precision=T.FAST_PRECISION)
+    st = T.init_state(plan, channels=C, device=dev)
+    pro = S.spectra_prologue(plan, st, signal(C * M, SEED + 48, dev).reshape(C, M))
+    tag = f"K1 {' '.join(form)} spectra cell {C}x{M} m={m}"
+    S.PACED_LAUNCHES, n = 0, S.LAUNCHES
+    got = S.launch_spectra(plan, pro, *form)
+    with pacing(S, False):
+        unpaced = S.launch_spectra(plan, pro, *form)
+    if (S.LAUNCHES - n, S.PACED_LAUNCHES) != (2, 1):
+        raise AssertionError(f"{tag}: {S.LAUNCHES - n} launches, {S.PACED_LAUNCHES} paced; "
+                             "expected 2 and 1")
+    same = all(torch.equal(a, b) for a, b in zip(got, unpaced))
+    print(f"  {tag}: one paced launch (kernels.spectra.paced_launches {S.PACED_LAUNCHES}); "
+          f"bit for bit the unpaced launch: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{tag}: the paced launch differs from the unpaced one")
+    del unpaced
+    want = S.spectra_reference(plan, pro, *form)
+    gate(f"{tag} vs plain (abs)", max(maxerr(g, w) for g, w in zip(got, want)), 2e-6)
+    del got, want
+    torch.cuda.empty_cache()
+    k = device_time(lambda: S.launch_spectra(plan, pro, *form), 10)
+    paced = S.PACED_LAUNCHES
+    with pacing(S, False):
+        ku = device_time(lambda: S.launch_spectra(plan, pro, *form), 10)
+    if S.PACED_LAUNCHES != paced or paced < 11:
+        raise AssertionError(f"{tag}: {S.PACED_LAUNCHES} paced launches after the timing, "
+                             f"{paced} before the unpaced one")
+    try:
+        plain = device_time(lambda: S.spectra_reference(plan, pro, *form), 2, 1)
+    except torch.cuda.OutOfMemoryError:
+        plain = None
+    nbytes = C * M * m * FORM_BYTES[form] + tile_input_bytes(pro)
+    b_ms, b_by = bound(nbytes, K1_FLOPS_PER_BIN * C * M * m)
+    del pro
+    torch.cuda.empty_cache()
+    print(f"timing: {tag} paced: kernel device {k:.4f} ms ({nbytes / k / 1e6:.1f} GB/s), "
+          f"{nbytes / 1e9:.4f} GB moved, bound {b_ms:.4f} ms ({b_by}), {b_ms / k:.1%} of "
+          f"bound; unpaced {ku:.4f} ms ({b_ms / ku:.1%}); plain device "
+          f"{'not measured (out of memory)' if plain is None else f'{plain:.4f} ms'} [{card}]",
+          flush=True)
+    return k, plain, b_ms, b_by, ku
 
 
 #: bit patterns at the edges of the masked split: ties, a carry into the
@@ -3058,7 +3185,7 @@ def cards_main(n: int) -> int:
 
 def print_ptxas(log: pathlib.Path) -> None:
     """ptxas's registers and spills of each K1/K2 instantiation (store
-    form, vector stores, window halo), of each probe instantiation (body,
+    form, vector stores, window halo; K1's paced clusters), of each probe instantiation (body,
     table inputs, fast; its shared memory is dynamic, csrc/kparts.cu
     smem_bytes), of split_mm's product and split-K kernels (passes) and of
     the carry kernel (vector copies, roots in shared memory), from the
@@ -3070,13 +3197,15 @@ def print_ptxas(log: pathlib.Path) -> None:
     entries, remarks = _build.ptxas_report(log)
     found = {"spectra": 0, "scan": 0, "kparts": 0, "split_mm": 0, "carry": 0}
     for name, regs, st, ld, smem in entries:
-        k12 = re.match(r"_ZN4sdft\d+(spectra|scan)_kernelILi(\d)ELb(\d)ELi(\d)E", name)
+        k12 = re.match(r"_ZN4sdft\d+(spectra|scan)_kernelILi(\d)ELb(\d)ELi(\d)E(?:Lb(\d)E)?",
+                       name)
         kp = re.match(r"_ZN6kparts13kparts_kernelILi(\d)ELb(\d)ELb(\d)E", name)
         sm = re.match(r"_ZN8split_mm\d+(split_mm_kernel|split_mm_reduce)ILi(\d)E", name)
         cf = re.match(r"_ZN4sdft5front11carry_frontILb(\d)ELb(\d)E", name)
         if k12:
-            kind, store, vec, halo = k12.groups()
-            label = f"{kind}_kernel<store={store}, vector={vec}, halo={halo}>"
+            kind, store, vec, halo, paced = k12.groups()
+            label = f"{kind}_kernel<store={store}, vector={vec}, halo={halo}" + (
+                f", paced={paced}>" if paced else ">")
         elif kp:
             kind = "kparts"
             label = "kparts_kernel<body={}, tables={}, fast={}>".format(*kp.groups())
@@ -3127,7 +3256,7 @@ def main() -> int:
         print(f"elapsed: {part} done {time.perf_counter() - t0:.1f} s after the build began",
               flush=True)
 
-    S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
+    S.LAUNCHES = S.PACED_LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
     errs = main_path(T, dev)
     torch.cuda.synchronize()
     launches = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
@@ -3143,7 +3272,7 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     cli_ref = errs.pop("cli")
-    S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
+    S.LAUNCHES = S.PACED_LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
     errs.update(stream_path(T, dev))
     torch.cuda.synchronize()
     part_c = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
@@ -3154,7 +3283,7 @@ def main() -> int:
         launches[name] += n
     done("part c")
     cells = graph_cells(T, Q, dev)
-    S.LAUNCHES = Q.LAUNCHES = M.LAUNCHES = F.LAUNCHES = 0
+    S.LAUNCHES = S.PACED_LAUNCHES = Q.LAUNCHES = M.LAUNCHES = F.LAUNCHES = 0
     graph_peaks = graph_path(T, S, Q, M, dev, card, cells)
     torch.cuda.synchronize()
     part_f = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "split_mm": M.LAUNCHES,
@@ -3175,7 +3304,7 @@ def main() -> int:
         try:
             mesh = par.make_mesh(1, 1, 1)
             print(f"sharded: mesh {mesh}, backend {dist.get_backend()}", flush=True)
-            S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
+            S.LAUNCHES = S.PACED_LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
             shard_errs, jobs, by_program = sharded_path(T, S, Q, dev, card, cli_ref, mesh)
             torch.cuda.synchronize()
             part_d = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
@@ -3197,7 +3326,7 @@ def main() -> int:
             # phase 5: once another process had used the card (the
             # crosscheck's subprocess), every later device_time of this
             # process lost 1-3 of 10 K1 events (PERF.md section 6)
-            S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
+            S.LAUNCHES = S.PACED_LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
             t_tools = time.perf_counter()
             tools = {"bench_mesh": bench_mesh(card)}
             part_e = {"spectra": S.LAUNCHES, "scan": Q.LAUNCHES, "carry": F.LAUNCHES}
@@ -3216,7 +3345,7 @@ def main() -> int:
     times.update(stream_timings(T, dev, card, times["k1_planar_float32"][0]))
     times["graphs"] = graph_timings(T, dev, card, cells)
     done("phases 4 and 5")
-    S.LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
+    S.LAUNCHES = S.PACED_LAUNCHES = Q.LAUNCHES = F.LAUNCHES = 0
     t0_tools = time.perf_counter()
     tools.update(tools_path(T, S, Q, card))
     torch.cuda.synchronize()
@@ -3252,6 +3381,9 @@ def main() -> int:
          "library_ms": times["k1_library"],
          "batch": {"shape": "8x32768 planar f32", "ms": b1, "plain_ms": bp1, "bound_ms": bb1,
                    "bound_by": bby1, "library_ms": bl1},
+         "k1_spectra_cell": {"shape": "8x44100 m=1000 planar f32, paced",
+                             **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "unpaced_ms"),
+                                        times["batch"]["k1_spectra_cell"]))},
          "sharded_by": {p: n[0] for p, n in by_program.items() if n[0]}},
         {"name": "scan", "route": "cuda", "source": src + "scan.cu",
          "replaces": "sdft_tpu/kernels/analysis_pallas.py:147",

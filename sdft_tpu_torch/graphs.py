@@ -62,8 +62,10 @@ the graphs are held against.
 
 A replay launches the kernels it captured without running their Python
 wrappers, so each graph adds its captured K1, K2, ``split_mm`` and carry
-launches to ``kernels.spectra.LAUNCHES``, ``kernels.scan.LAUNCHES``,
-``kernels.split_mm.LAUNCHES`` and ``kernels.carry.LAUNCHES`` per replay.
+launches to the counters each kernel module lists in ``COUNTERS``
+(``kernels.spectra.LAUNCHES`` and, of them, ``PACED_LAUNCHES``,
+``kernels.scan.LAUNCHES``, ``kernels.split_mm.LAUNCHES`` and
+``kernels.carry.LAUNCHES``) per replay.
 ``CAPTURES`` counts the graphs captured and ``EVICTIONS`` those the bound evicted: a stream whose
 shapes vary captures and evicts on every call (``tracing.counters``).
 Under a profiler (``tracing``) each replay, with its key, lookup and
@@ -192,9 +194,12 @@ def _rebuild(tree, tensors):
 
 
 def _launch_counters():
+    """The kernels' launch counters as (name, module, attribute), from each
+    kernel module's ``COUNTERS``."""
     from .kernels import carry, scan, spectra, split_mm
 
-    return (spectra, scan, split_mm, carry)
+    return tuple((name, mod, attr) for mod in (spectra, scan, split_mm, carry)
+                 for name, attr in mod.COUNTERS.items())
 
 
 class Graph:
@@ -218,16 +223,17 @@ class Graph:
         try:
             BACKEND.warmup(fn, static, device)
             counters = _launch_counters()
-            before = [c.LAUNCHES for c in counters]
+            before = [getattr(mod, attr) for _, mod, attr in counters]
             reserved = BACKEND.reserved(device)
             _HELD = []
             try:
                 self._graph, self.outputs = BACKEND.capture(fn, static, device, mode)
             finally:
                 self._held, _HELD = _HELD, None
-                captured = [c.LAUNCHES - n for c, n in zip(counters, before)]
-                for c, n in zip(counters, before):
-                    c.LAUNCHES = n        # the capture launched nothing
+                captured = [getattr(mod, attr) - n
+                            for (_, mod, attr), n in zip(counters, before)]
+                for (_, mod, attr), n in zip(counters, before):
+                    setattr(mod, attr, n)     # the capture launched nothing
         except Exception as e:
             raise RuntimeError(f"graph capture of {name} failed (key {key}): {e}") from e
         self.pool_bytes = BACKEND.reserved(device) - reserved
@@ -250,8 +256,8 @@ class Graph:
         except Exception as e:
             raise RuntimeError(f"graph replay of {self.name} failed (key {self.key}): "
                                f"{e}") from e
-        for c, n in self._launches:
-            c.LAUNCHES += n
+        for (_, mod, attr), n in self._launches:
+            setattr(mod, attr, getattr(mod, attr) + n)
         return self.outputs
 
 
@@ -334,7 +340,7 @@ class Entry(NamedTuple):
 def entries() -> list:
     """The cached graphs, least recently used first."""
     return [Entry(g.name, g.key, g.capture_s, g.pool_bytes,
-                  {c.__name__.rsplit(".", 1)[-1]: n for c, n in g._launches})
+                  {name: n for (name, _, _), n in g._launches})
             for g in _GRAPHS.values()]
 
 

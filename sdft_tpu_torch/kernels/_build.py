@@ -4,7 +4,7 @@ The sources under ``csrc/`` are compiled by ``nvcc``, one process per
 source, all started together, and linked into one shared library with a
 plain C interface, loaded through ``ctypes``.  The build runs at first use
 and again whenever a source or the flags change: the library's file name
-carries a hash of both.  A failed build raises with nvcc's output; nothing
+carries a hash of both (``flags``).  A failed build raises with nvcc's output; nothing
 falls back.  The build goes to ``_build/`` beside this file, together with
 a log of ptxas's register and shared-memory report for each kernel.
 """
@@ -37,7 +37,7 @@ _L = ctypes.c_longlong
 #: split_mm.cu, carry.cu)
 SIGNATURES = {
     "sdft_spectra_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _F, _F, _I, _I, _I, _I, _P),
+                            _F, _F, _F, _I, _I, _I, _I, _I, _P),
     "sdft_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _I, _F, _I, _I, _P),
     "sdft_kparts_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -46,6 +46,7 @@ SIGNATURES = {
     "sdft_split_mask_launch": (_P, _P, _P, _L, _P),
     "sdft_carry_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "sdft_spectra_occupancy": (_I,),
+    "sdft_spectra_clusters": (_I, _I),
     "sdft_scan_occupancy": (_I,),
     "sdft_kparts_occupancy": (_I, _I, _I, _I),
     "sdft_split_mm_occupancy": (_I,),
@@ -65,9 +66,19 @@ def nvcc() -> str:
     return found
 
 
+def flags() -> tuple:
+    """FLAGS and the macros the sources take from the wrappers: K1's paced
+    store forms as a mask of their store codes (kernels/spectra.py:
+    PACED_FORMS, STORES)."""
+    from . import spectra
+
+    mask = sum(1 << spectra.STORES[f] for f in spectra.PACED_FORMS)
+    return (*FLAGS, f"-DSDFT_PACED_STORES={mask}")
+
+
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags()).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -91,7 +102,7 @@ def build() -> pathlib.Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
-        cmds = [[compiler, *FLAGS, "-c", str(CSRC / s), "-o", o]
+        cmds = [[compiler, *flags(), "-c", str(CSRC / s), "-o", o]
                 for s, o in zip(SOURCES, objs)]
         with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
             logs = list(pool.map(_run, cmds))

@@ -38,6 +38,8 @@ K = 128
 
 #: launches of the CUDA kernel
 LAUNCHES = 0
+#: the launch counters a graph's replay adds to, by name (``graphs``)
+COUNTERS = {"carry": "LAUNCHES"}
 
 
 @graphs.cached(maxsize=16)

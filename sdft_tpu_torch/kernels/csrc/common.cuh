@@ -41,20 +41,23 @@
 // bins apart (K1: one strip of K1_STRIP = 4; K2: two strips of K2_STRIP =
 // 2, scan.cu), and runs their V independent running
 // sums, so it has V-way instruction-level parallelism and no thread is a
-// guard.  A warp's strips are one chunk of 32*V output bins, so every chunk
-// of every store form starts on a 128-byte line, and each store
+// guard.  A warp's strips are one chunk of 32*V output bins, and each store
 // instruction of a warp writes one strip of each of its lanes: 32*SEG
-// contiguous elements.  The window stencil reads inner neighbours from the
-// thread's own registers and the strip edges from lanes -1 and +1 by warp
-// shuffles (rotated across the warp where a lane has several strips, so
-// lane 0 and lane 31 read their other strips' neighbours from lane 31 and
-// lane 0); the chunk's edges come from guard slots: every lane runs HALO
-// extra recurrences, those of lanes 0-15 for the bins left of the chunk
-// and those of lanes 16-31 for the bins right of it, and lane 0 and lane
-// 31 read them.  So aux never touches shared memory
-// and no block barrier runs inside the tile loop.  A block's WARPS warps
-// share one chunk, and its phasor rows, loaded once under the block's only
-// barrier, and walk different tiles: those of every channel of a batch, one
+// contiguous elements.  K1's chunks of 128 bins are 256, 512 or 1024 bytes
+// of a row, so a chunk starts on a 256-byte boundary exactly when its row
+// does: every row where the row's bytes are a multiple of 256 (m = 1024,
+// 4096), else rows in turn (planar f32 at m = 1000: row r starts 160*r mod
+// 256 bytes into a unit, 7 rows in 8 off it; see "Paced clusters" below).
+// The window stencil reads inner neighbours from the thread's own registers
+// and the strip edges from lanes -1 and +1 by warp shuffles (rotated across
+// the warp where a lane has several strips, so lane 0 and lane 31 read
+// their other strips' neighbours from lane 31 and lane 0); the chunk's edges
+// come from guard slots: every lane runs HALO extra recurrences, those of
+// lanes 0-15 for the bins left of the chunk and those of lanes 16-31 for
+// the bins right of it, and lane 0 and lane 31 read them.  So aux never
+// touches shared memory and no block barrier runs inside the tile loop.
+// A block's WARPS warps share one chunk, and its phasor rows, loaded once
+// under the block's only barrier, and walk different tiles: those of every channel of a batch, one
 // launch for the batch (the counterpart of the JAX package's vmap over the
 // Pallas call, which prepends a channel axis to its grid).  Control flow
 // depends on the block and the arguments only (a warp past the last tile
@@ -68,7 +71,28 @@
 // m % V == 0 — 16 bytes for K1's f32 planes and packed f32, 8 for bf16 and
 // power bf16 — and element by element otherwise (the wrapper chooses, the
 // launcher checks).  Stores are streaming (st.global.cs): the kernel never
-// reads its output back.
+// reads its output back, and default write-back stores (a build with
+// -DSDFT_WB_STORES) ran 1-2 % slower at every m near 1000.
+//
+// Paced clusters (K1 only; kernels/spectra.py: paced).  Where a row's bytes
+// are no multiple of 256, the edge between chunks c and c+1 of most rows
+// splits a 256-byte unit of the spectra between blocks (c, y) and (c+1, y),
+// which otherwise run unsynchronized on two SMs, so the unit's halves reach
+// memory far apart.  On this card that costs store bandwidth: K1 planar f32
+// on 8 channels at equal bytes read 86-88 % of its bound at m = 960 and
+// 1024 (256-byte rows), 81 % at 992 (half its rows off the unit), 79-80 %
+// at 1008 (3/4), 77 % at 1000 (7/8), and 87 % at m = 1000 written into rows
+// padded to 1024 bins.  A paced launch makes each row of chunks (2 to
+// MAX_CLUSTER of them, so 128 < m <= 1024: a row of one chunk has no edge
+// between blocks) one thread-block cluster: every thread arrives
+// on the cluster's barrier after a FINE step's stores and waits before the
+// next step's, so the blocks sharing a unit store it within one step of each
+// other.  At m = 1000 (8 x 44100) that took planar f32 from 77 to 84-85 % of
+// its bound (1.090 to 0.99 ms), planar bf16 from 41 to 70 % and power f32
+// from 74 to 79 %; packed f32 and power bf16 lost 1-5 points with it and
+// are never paced (spectra.cu: paceable).  The pacing is a template
+// parameter: a runtime flag around the barrier cost the unpaced forms up to
+// 6 % at m = 4096.
 //
 // What bounds it on this card (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
 // and kernels/compare_bodies.py): at m = 4096 and M = 65536 every store
@@ -125,6 +149,7 @@ constexpr int WARPS = 4;     // warps per block, one bin chunk, different tiles
 constexpr int FINE = 8;      // rows per coarse phasor
 constexpr int MAX_HALO = 2;  // Blackman's two-bin stencil
 constexpr int MAX_K = 256;   // largest tile the wrappers may request
+constexpr int MAX_CLUSTER = 8;  // largest portable cluster: a paced launch's chunks
 constexpr unsigned FULL = 0xffffffffu;
 
 // Output forms of the spectra store.
@@ -147,7 +172,22 @@ struct TileArgs {
   int m, C, M, K, nt, halo;
   float w0, w1, w2;     // window taps times the analysis weight 1/(2m)
   int roi_first, roi_last;
+  int paced;  // K1: clusters of a row of chunks, paced a FINE step at a time
 };
+
+// The output's row stride in bins: m.  A build with -DSDFT_ROW_STRIDE=<bins>
+// writes every row that many bins apart instead (K1 and K2 alike), for
+// kernels/compare_bodies.py's probe of rows padded past m; its launcher
+// refuses m above it.
+#ifdef SDFT_ROW_STRIDE
+constexpr int ROW_STRIDE = SDFT_ROW_STRIDE;
+#else
+constexpr int ROW_STRIDE = 0;
+#endif
+
+__host__ __device__ __forceinline__ int row_stride(const TileArgs& a) {
+  return ROW_STRIDE ? ROW_STRIDE : a.m;
+}
 
 // Output bins of one warp (and one block): 32 strips.
 __host__ __device__ inline int chunk_bins(int V) { return 32 * V; }
@@ -185,6 +225,28 @@ __device__ __forceinline__ void phasor_row(const float4* ph, int c, int lane,
   }
 }
 
+// Streaming (evict-first) store of one vector; -DSDFT_WB_STORES builds the
+// default write-back store instead (kernels/compare_bodies.py's store-hint
+// probe).
+template <typename T>
+__device__ __forceinline__ void st_out(T* p, T v) {
+#ifdef SDFT_WB_STORES
+  *p = v;
+#else
+  __stcs(p, v);
+#endif
+}
+
+// The split barrier of a cluster (PTX barrier.cluster): arrive, then wait
+// for every thread of the cluster to have arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
 __device__ __forceinline__ unsigned bf16x2(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const unsigned*>(&h);
@@ -194,11 +256,11 @@ __device__ __forceinline__ unsigned bf16x2(float a, float b) {
 template <int V>
 __device__ __forceinline__ void store_f32(float* p, const float (&v)[V]) {
   if constexpr (V == 2) {
-    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+    st_out(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
   } else {
 #pragma unroll
     for (int q = 0; q < V / 4; ++q)
-      __stcs(reinterpret_cast<float4*>(p) + q,
+      st_out(reinterpret_cast<float4*>(p) + q,
              make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
   }
 }
@@ -207,14 +269,13 @@ __device__ __forceinline__ void store_f32(float* p, const float (&v)[V]) {
 template <int V>
 __device__ __forceinline__ void store_bf16(__nv_bfloat16* p, const float (&v)[V]) {
   if constexpr (V == 2) {
-    __stcs(reinterpret_cast<unsigned*>(p), bf16x2(v[0], v[1]));
+    st_out(reinterpret_cast<unsigned*>(p), bf16x2(v[0], v[1]));
   } else if constexpr (V == 4) {
-    __stcs(reinterpret_cast<uint2*>(p),
-           make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3])));
+    st_out(reinterpret_cast<uint2*>(p), make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3])));
   } else {
 #pragma unroll
     for (int q = 0; q < V / 8; ++q)
-      __stcs(reinterpret_cast<uint4*>(p) + q,
+      st_out(reinterpret_cast<uint4*>(p) + q,
              make_uint4(bf16x2(v[8 * q], v[8 * q + 1]), bf16x2(v[8 * q + 2], v[8 * q + 3]),
                         bf16x2(v[8 * q + 4], v[8 * q + 5]),
                         bf16x2(v[8 * q + 6], v[8 * q + 7])));
@@ -261,7 +322,7 @@ __device__ __forceinline__ void store_strip(void* o0, void* o1, size_t idx,
     float4* p = reinterpret_cast<float4*>(reinterpret_cast<float2*>(o0) + idx);
 #pragma unroll
     for (int q = 0; q < V / 2; ++q)
-      __stcs(p + q, make_float4(re[2 * q], im[2 * q], re[2 * q + 1], im[2 * q + 1]));
+      st_out(p + q, make_float4(re[2 * q], im[2 * q], re[2 * q + 1], im[2 * q + 1]));
   } else if constexpr (STORE == PLANAR_F32) {
     store_f32<V>(reinterpret_cast<float*>(o0) + idx, re);
     store_f32<V>(reinterpret_cast<float*>(o1) + idx, im);
@@ -358,7 +419,7 @@ __device__ __forceinline__ void edge_right(float2 (&r)[NSTRIP], float2 g, int la
 // (chunk, channel, row) has exactly one writer); scan.cu adds the chunks in
 // order.  A warp stores eight consecutive rows at once, so with y_rows a
 // multiple of 8 every such store fills one 32-byte sector.
-template <int V, int SEG, int HALO, int STORE, bool EMIT_Y, bool VEC>
+template <int V, int SEG, int HALO, int STORE, bool EMIT_Y, bool VEC, bool PACED = false>
 __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void* out1,
                                               const float2* synth, float* y,
                                               float y_scale, int y_rows) {
@@ -445,7 +506,13 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
   // depends on the block and the arguments only, so the compiler sees every
   // shuffle converged: a warp past its channel's last tile runs that tile
   // again and stores nothing, and rows past M run on zero deltas unstored.
+  // The same rule makes every block of a paced cluster (same blockIdx.y)
+  // walk the same groups and steps, so each of its threads arrives on the
+  // cluster barrier as often as every other: once before the walk, once
+  // after each step's stores; it waits before the next step's stores and
+  // once after the walk.
   const int groups = (a.nt + WARPS - 1) / WARPS;
+  if constexpr (PACED) cluster_arrive();
   for (int g = blockIdx.y; g < a.C * groups; g += gridDim.y) {
     const int ch = g / groups, tg = g - ch * groups;
     const int t = min(tg * WARPS + warp, a.nt - 1);
@@ -464,9 +531,9 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
     const long long row0 = (long long)t * a.K;
     const int rows = tg * WARPS + warp >= a.nt ? 0 : (a.M - row0 < a.K ? (int)(a.M - row0) : a.K);
     const size_t crow0 = (size_t)ch * a.M + row0;  // row k0 = 0 in the batch's rows
-    size_t idx = crow0 * a.m + p0;  // the strip's first bin in row k0
+    size_t idx = crow0 * row_stride(a) + p0;  // the strip's first bin in row k0
     float* yrow = EMIT_Y ? y + ((size_t)blockIdx.x * a.C + ch) * y_rows + row0 : nullptr;
-    for (int k0 = 0; k0 < a.K; k0 += FINE, idx += (size_t)FINE * a.m) {
+    for (int k0 = 0; k0 < a.K; k0 += FINE, idx += (size_t)FINE * row_stride(a)) {
       const int c = k0 / FINE;
       float2 cc[V], f[V], gcc[MAX_HALO], gf[MAX_HALO];
       phasor_row<V>(ph, c, lane, cc);
@@ -548,6 +615,9 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
           o[j] = make_float2(ox, oy);
           if (EMIT_Y) yv[b] += ox * s_i[j].x - oy * s_i[j].y;
         }
+        // the other blocks of the cluster are done with the previous step
+        if constexpr (PACED)
+          if (b == 0) cluster_wait();
 #pragma unroll
         for (int h = 0; h < NSTRIP; ++h) {
           const int ph = p0 + h * 32 * SEG;
@@ -555,11 +625,13 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
             float2 oh[SEG];
 #pragma unroll
             for (int i = 0; i < SEG; ++i) oh[i] = o[h * SEG + i];
-            store_strip<SEG, STORE, VEC>(out0, out1, idx + (size_t)b * a.m + h * 32 * SEG, oh,
+            store_strip<SEG, STORE, VEC>(out0, out1,
+                                         idx + (size_t)b * row_stride(a) + h * 32 * SEG, oh,
                                          a.m - ph);
           }
         }
       }
+      if constexpr (PACED) cluster_arrive();
       if constexpr (EMIT_Y) {
         const float v = warp_sum8(yv, lane);
         const int r = row_of_lane(lane);
@@ -568,6 +640,25 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
       }
     }
   }
+  if constexpr (PACED) cluster_wait();
+}
+
+// The launch configuration of a paced launch: clusters of `chunks` blocks
+// along x, the whole row of bin chunks.
+inline cudaLaunchConfig_t cluster_config(int chunks, int grid_y, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = chunks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(chunks, grid_y);
+  cfg.blockDim = dim3(WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // Validate the arguments, set the kernel's shared-memory attributes, size
@@ -575,18 +666,34 @@ __device__ __forceinline__ void spectra_tiles(const TileArgs a, void* out0, void
 // is (bin chunks, tile groups of the whole batch): one wave of resident
 // blocks, each walking every gridDim.y-th group of its chunk.  The channels
 // fold into the groups rather than into gridDim.z, so a block fills its
-// phasor rows once for all of them.
+// phasor rows once for all of them.  A paced launch (a.paced; K1 only)
+// groups each row of chunks into one cluster, which needs chunks <= 8 (the
+// portable cluster size), and takes as many rows as clusters stay resident.
 template <int V, int SEG = V, typename Kernel, typename... Args>
 int launch_tiles(Kernel kernel, const TileArgs& a, bool vec, cudaStream_t stream,
                  Args... args) {
+  const int chunks = (a.m + chunk_bins(V) - 1) / chunk_bins(V);
   if (a.K <= 0 || a.K % FINE || a.K > MAX_K || a.halo < 0 || a.halo > MAX_HALO ||
       a.m < MAX_HALO + 1 || a.nt <= 0 || a.M <= 0 || (long long)a.nt * a.K < a.M ||
-      a.C <= 0 || (long long)a.C * ((a.nt + WARPS - 1) / WARPS) > 0x7fffffff || (vec && a.m % SEG))
+      a.C <= 0 || (long long)a.C * ((a.nt + WARPS - 1) / WARPS) > 0x7fffffff ||
+      row_stride(a) < a.m || (vec && (a.m % SEG || row_stride(a) % SEG)) ||
+      (a.paced && chunks > MAX_CLUSTER))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(V, a.K);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const int groups = a.C * ((a.nt + WARPS - 1) / WARPS);
+  if (a.paced) {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(chunks, 1, smem, stream, &attr);
+    int clusters = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
+      return (int)err;
+    if (clusters <= 0) return (int)cudaErrorInvalidConfiguration;
+    cfg.gridDim.y = clusters > groups ? groups : clusters;
+    return (int)cudaLaunchKernelEx(&cfg, kernel, a, args...);
+  }
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
@@ -594,8 +701,6 @@ int launch_tiles(Kernel kernel, const TileArgs& a, bool vec, cudaStream_t stream
                                                           smem)) != cudaSuccess)
     return (int)err;
   if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
-  const int chunks = (a.m + chunk_bins(V) - 1) / chunk_bins(V);
-  const int groups = a.C * ((a.nt + WARPS - 1) / WARPS);
   int grid_y = per_sm * sms / chunks;
   grid_y = grid_y < 1 ? 1 : (grid_y > groups ? groups : grid_y);
   kernel<<<dim3(chunks, grid_y), WARPS * 32, smem, stream>>>(a, args...);
@@ -613,6 +718,22 @@ int occupancy(Kernel kernel, int K) {
           cudaSuccess)
     return 0;
   return blocks;
+}
+
+// Resident clusters of `chunks` blocks of `kernel` on the card at tile
+// depth K (0 on error).
+template <int V, typename Kernel>
+int clusters(Kernel kernel, int K, int chunks) {
+  int n = 0;
+  const size_t smem = smem_bytes(V, K);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(chunks, 1, smem, nullptr, &attr);
+  if (chunks < 1 || chunks > MAX_CLUSTER ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 }  // namespace sdft

@@ -131,7 +131,7 @@ extern "C" int sdft_scan_launch(const void* c0, const void* delta,
   const TileArgs a{static_cast<const float2*>(c0),
                    static_cast<const float*>(delta),
                    static_cast<const float2*>(table),
-                   m, C, M, K, nt, halo, w0, w1, w2, roi_first, roi_last};
+                   m, C, M, K, nt, halo, w0, w1, w2, roi_first, roi_last, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* sy = static_cast<const float2*>(synth);
   float* yp = static_cast<float*>(y_part);

@@ -46,6 +46,8 @@ BINS = 4
 
 #: launches of the CUDA kernel (the plain version does not count)
 LAUNCHES = 0
+#: the launch counters a graph's replay adds to, by name (``graphs``)
+COUNTERS = {"scan": "LAUNCHES"}
 
 
 def y_chunks(m: int) -> int:

@@ -29,7 +29,8 @@ the graph's pool.
 On a CPU tensor the wrapper runs the kernel's plain PyTorch version
 (``spectra_reference``); on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts the kernel's launches, a graph's replays included
-(``graphs``); under a profiler each launch lies in a span
+(``graphs``), and ``PACED_LAUNCHES`` those of them that ran as paced
+clusters (``paced``); under a profiler each launch lies in a span
 ``sdft.kernels.spectra`` (``tracing``).
 """
 
@@ -66,8 +67,25 @@ STORES = {("packed", "float32"): 0, ("planar", "float32"): 1,
           ("planar", "bfloat16"): 2, ("power", "float32"): 3,
           ("power", "bfloat16"): 4}
 
+#: the unit of the spectra that a K1 chunk edge must not split between two
+#: blocks far apart in time (csrc/common.cuh)
+PACE_BYTES = 256
+#: most bin chunks a paced launch takes: the portable cluster size
+#: (csrc/common.cuh: MAX_CLUSTER)
+MAX_CLUSTER = 8
+#: store forms with a paced instantiation (``_build.flags`` passes them to
+#: csrc/spectra.cu as SDFT_PACED_STORES): at
+#: m = 1000 pacing took planar f32 from 77 to 84 % of its bound, planar bf16
+#: from 41 to 70 % and power f32 from 74 to 79 %, and lost 1-5 points in
+#: packed f32 and power bf16 (PERF.md section 6)
+PACED_FORMS = (("planar", "float32"), ("planar", "bfloat16"), ("power", "float32"))
+
 #: launches of the CUDA kernel (the plain version does not count)
 LAUNCHES = 0
+#: of them, launches that took the paced cluster path (``paced``)
+PACED_LAUNCHES = 0
+#: the launch counters a graph's replay adds to, by name (``graphs``)
+COUNTERS = {"spectra": "LAUNCHES", "spectra.paced": "PACED_LAUNCHES"}
 
 
 def kernel_supported(plan: Plan, M: int, out_dtype: str | None = None) -> bool:
@@ -226,13 +244,32 @@ def vector_stores(m: int, strip: int | None = None) -> bool:
     return m % (strip or STRIP) == 0
 
 
+def row_bytes(m: int, form: str, dtype: str) -> int:
+    """Bytes of one row of one output plane of a store form."""
+    return m * getattr(torch, dtype).itemsize * (2 if form == "packed" else 1)
+
+
+def paced(m: int, form: str, dtype: str) -> bool:
+    """Whether K1 launches each row of bin chunks as one thread-block
+    cluster whose blocks store each FINE step of rows in step
+    (csrc/common.cuh): in PACED_FORMS with vector stores, where a row of
+    the form is no multiple of PACE_BYTES, so chunk edges split such units
+    between two blocks, and the row's chunks of 32 * STRIP bins are more
+    than one (a row of one chunk has no edge between blocks) and fit one
+    cluster."""
+    chunks = -(-m // (32 * STRIP))
+    return ((form, dtype) in PACED_FORMS and vector_stores(m)
+            and row_bytes(m, form, dtype) % PACE_BYTES != 0
+            and 1 < chunks <= MAX_CLUSTER)
+
+
 def store_bytes(m: int, form: str, dtype: str, strip: int | None = None) -> int:
     """Bytes of one store instruction of a kernel thread in a store form:
     the vector store of its ``strip`` bins of a plane (K1's STRIP by
     default), capped at 16 bytes (K1's packed strip takes two), or with
     scalar stores one element (two floats for packed)."""
     strip = strip or STRIP
-    elem = getattr(torch, dtype).itemsize * (2 if form == "packed" else 1)
+    elem = row_bytes(1, form, dtype)
     return min(16, strip * elem) if vector_stores(m, strip) else elem
 
 
@@ -301,20 +338,23 @@ def launch_args(plan: Plan, pro: Prologue) -> tuple:
 @spanned("sdft.kernels.spectra")
 def launch_spectra(plan: Plan, pro: Prologue, form: str = "packed",
                    dtype: str = "float32", out=None):
-    """Launch K1 once on the prologue's CUDA tensors, for its whole batch;
-    returns the spectra (written into ``out`` when given, see
-    ``allocate``)."""
-    global LAUNCHES
+    """Launch K1 once on the prologue's CUDA tensors, for its whole batch,
+    paced where ``paced`` says; returns the spectra (written into ``out``
+    when given, see ``allocate``)."""
+    global LAUNCHES, PACED_LAUNCHES
     args = launch_args(plan, pro)
     dev = pro.c0.device
-    outs, (p0, p1) = allocate(pro, plan.dftsize, form, dtype, out)
+    m = plan.dftsize
+    outs, (p0, p1) = allocate(pro, m, form, dtype, out)
+    pace = paced(m, form, dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().sdft_spectra_launch(
             *args[:3], p0, p1, *args[3:], STORES[form, dtype],
-            int(vector_stores(plan.dftsize)), stream)
+            int(vector_stores(m)), int(pace), stream)
     check(err, "sdft_spectra_launch")
     LAUNCHES += 1
+    PACED_LAUNCHES += pace
     return outs
 
 

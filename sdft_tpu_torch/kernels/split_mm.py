@@ -44,6 +44,8 @@ MIN_CHUNK = 256
 
 #: launches of the CUDA kernel (the plain version does not count)
 LAUNCHES = 0
+#: the launch counters a graph's replay adds to, by name (``graphs``)
+COUNTERS = {"split_mm": "LAUNCHES"}
 
 
 class Split(NamedTuple):

@@ -34,7 +34,8 @@ generator's ``yield``):
 
 ``counters()`` reads the port's counters: the graphs captured and evicted
 (``graphs.CAPTURES``, ``graphs.EVICTIONS``), the K1, K2, ``split_mm``
-and carry launches (each kernel module's ``LAUNCHES``), the chains
+and carry launches (each kernel module's ``LAUNCHES``; K1's paced ones,
+``kernels.spectra.PACED_LAUNCHES``, apart), the chains
 ``Streamer.run_hopped`` copied home without blocking and of them those
 still in flight once the next chain was queued (``stream.streamer``'s
 ``PINNED_COPIES``, ``OVERLAPPED_COPIES``), and the blocks
@@ -84,6 +85,7 @@ def counters() -> dict:
 
     return {"graphs.captures": graphs.CAPTURES, "graphs.evictions": graphs.EVICTIONS,
             "kernels.spectra.launches": spectra.LAUNCHES,
+            "kernels.spectra.paced_launches": spectra.PACED_LAUNCHES,
             "kernels.scan.launches": scan.LAUNCHES,
             "kernels.split_mm.launches": split_mm.LAUNCHES,
             "kernels.carry.launches": carry.LAUNCHES,

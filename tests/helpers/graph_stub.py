@@ -22,9 +22,10 @@ class _StubGraph:
         self.fn, self.args, self.out = fn, args, out
 
     def replay(self):
-        saved = spectra.LAUNCHES, scan.LAUNCHES
+        saved = spectra.LAUNCHES, spectra.PACED_LAUNCHES, scan.LAUNCHES
         new = self.fn(*self.args)
-        spectra.LAUNCHES, scan.LAUNCHES = saved     # a replay runs no Python
+        # a replay runs no Python
+        spectra.LAUNCHES, spectra.PACED_LAUNCHES, scan.LAUNCHES = saved
         for s, t in zip(graphs.leaves(self.out), graphs.leaves(new)):
             s.copy_(t)
 

@@ -232,6 +232,23 @@ def test_replay_adds_the_captured_launches_to_the_counters(stub):
     assert (scan.LAUNCHES - q, spectra.LAUNCHES - s) == (8, 4)
 
 
+def test_replay_adds_the_captured_paced_k1_launches(stub):
+    """K1's paced launches are counted apart (``spectra.PACED_LAUNCHES``),
+    and a replay adds those it captured as it adds every launch."""
+    def fn(t):
+        spectra.LAUNCHES += 1
+        spectra.PACED_LAUNCHES += 1
+        return t + 1
+
+    s, p = spectra.LAUNCHES, spectra.PACED_LAUNCHES
+    graphs.run("probe", (), fn, torch.zeros(3))
+    assert (spectra.LAUNCHES - s, spectra.PACED_LAUNCHES - p) == (3, 3)
+    (entry,) = graphs.entries()
+    assert entry.launches == {"spectra": 1, "spectra.paced": 1}
+    graphs.run("probe", (), fn, torch.zeros(3))
+    assert (spectra.LAUNCHES - s, spectra.PACED_LAUNCHES - p) == (4, 4)
+
+
 def test_graphed_tables_are_held_past_a_cache_eviction(stub):
     """Device tables read from a cache during the capture belong to the
     graph, so clearing the cache frees nothing a replay reads."""

@@ -347,6 +347,78 @@ def test_wrapper_chooses_vector_or_scalar_stores(m, form, dtype, want):
     assert spectra.vector_stores(m) is (m % spectra.STRIP == 0)
 
 
+@pytest.mark.parametrize("form,dtype", list(spectra.STORES))
+@pytest.mark.parametrize("m", [100, 128, 129, 960, 992, 1000, 1001, 1008, 1024, 1025, 4096])
+def test_k1_paces_where_chunk_edges_split_256_byte_units(m, form, dtype):
+    """K1 runs as paced clusters exactly in the paced forms (planar f32 and
+    bf16, power f32) with vector stores, where a row of the form is no
+    multiple of 256 bytes and the row's 2 to 8 chunks of 128 bins fill one
+    cluster: at m = 1000 (rows of 4000 and 2000 B), never at m = 1024 or
+    4096, at 960 only planar bf16 (1920 B rows), never in a row of one
+    chunk (m = 100, 128), past 8 chunks (m = 1025) or with scalar stores
+    (m = 1001); packed f32 and power bf16 never."""
+    elem = {"packed": 8, "planar": 4, "power": 4}[form] // (2 if dtype == "bfloat16" else 1)
+    assert spectra.row_bytes(m, form, dtype) == m * elem
+    want = ((form, dtype) in spectra.PACED_FORMS and m % 4 == 0 and m * elem % 256 != 0
+            and 128 < m <= 1024)
+    assert spectra.paced(m, form, dtype) is want
+    if m == 1000:
+        assert want is ((form, dtype) != ("packed", "float32")
+                        and (form, dtype) != ("power", "bfloat16"))
+    if m in (100, 128, 1001, 1024, 1025, 4096) or (m == 960 and dtype == "float32"):
+        assert not want
+
+
+def test_k1_paced_forms_and_cluster_bound_match_the_build():
+    """The build takes the wrapper's paced forms (``_build.flags`` passes
+    their store codes' mask as SDFT_PACED_STORES, which csrc/spectra.cu's
+    paceable reads and cannot build without) and cluster size
+    (csrc/common.cuh: MAX_CLUSTER, which the launcher checks)."""
+    mask = sum(1 << spectra.STORES[f] for f in spectra.PACED_FORMS)
+    assert mask == 0b01110    # planar f32, planar bf16, power f32
+    flags = _build.flags()
+    assert flags[:len(_build.FLAGS)] == _build.FLAGS
+    assert [f for f in flags if "PACED" in f] == [f"-DSDFT_PACED_STORES={mask}"]
+    src = (_build.CSRC / "spectra.cu").read_text()
+    assert "#ifndef SDFT_PACED_STORES\n#error" in src
+    assert re.search(r"constexpr bool paceable\(int store\) \{\s*return "
+                     r"\(SDFT_PACED_STORES >> store\) & 1;", src)
+    assert spectra.MAX_CLUSTER == _header_int("MAX_CLUSTER") == 8
+    assert "(a.paced && chunks > MAX_CLUSTER)" in (_build.CSRC / "common.cuh").read_text()
+
+
+def test_k1_launch_passes_the_rule_and_counts_paced_launches(monkeypatch):
+    """launch_spectra hands the C entry the rule's flag, one argument for
+    each of the source's parameters as the declared signature types them,
+    and counts the paced launches apart."""
+    calls = []
+
+    class Lib:
+        def sdft_spectra_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(spectra, "library", lambda: Lib())
+    monkeypatch.setattr(spectra, "launch_args", lambda plan, pro: (1, 2, 3, 1000, 1, 8, 128, 1,
+                                                                 1, 0.5, 0.25, 0.0, 0, 1000))
+    monkeypatch.setattr(spectra, "allocate", lambda *a, **k: ("out", (4, 5)))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 9})())
+    pro = type("P", (), {"c0": torch.zeros(1)})()
+    launches, paced = spectra.LAUNCHES, spectra.PACED_LAUNCHES
+    for m, want in ((1000, 1), (1024, 0)):
+        plan = type("Plan", (), {"dftsize": m})()
+        assert spectra.launch_spectra(plan, pro, "planar", "float32") == "out"
+        assert calls[-1][-2:] == (want, 9)
+    src = (_build.CSRC / "spectra.cu").read_text()
+    params = re.search(r'extern "C" int sdft_spectra_launch\(([^)]*)\)', src).group(1).split(",")
+    kinds = [{"int": _build._I, "float": _build._F}.get(p.split()[0], _build._P) for p in params]
+    assert list(_build.SIGNATURES["sdft_spectra_launch"]) == kinds
+    assert len(calls[-1]) == len(kinds) == 20
+    assert (spectra.LAUNCHES - launches, spectra.PACED_LAUNCHES - paced) == (2, 1)
+
+
 @pytest.mark.parametrize("m,want", [(1000, True), (130, True), (129, False)])
 def test_k2_strip_choice(m, want):
     """K2 runs strips of two bins: vector stores whenever m is even."""
@@ -686,6 +758,42 @@ def test_cuda_every_store_form_and_k2_match_plain_versions(cuda_device, m, windo
         elif layout == "planar":
             assert torch.equal(dk[0], k2_packed[..., 0]) and torch.equal(dk[1], k2_packed[..., 1])
         torch.testing.assert_close(yk, yr, atol=1e-5, rtol=0.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,roi,C,M", [("hann", None, 8, 44100),
+                                            ("blackman", None, 3, 2 * 128 + 37),
+                                            ("boxcar", (3, 995), 3, 777),
+                                            ("hann", (0, 100), 1, 300)])
+def test_cuda_paced_k1_equals_the_unpaced_launch_bit_for_bit(cuda_device, window, roi, C, M):
+    """At m = 1000 the paced forms run K1 as paced clusters, one paced
+    launch a call, and write bit for bit what the unpaced launch writes:
+    the spectra cell's 8 x 44100 block, a ragged C = 3 batch (M no multiple
+    of the tile, so warps of the last group run a tile past the end) and
+    restricted ROIs.  The other forms launch unpaced, and the C entry
+    refuses to pace them."""
+    tp = T.Plan(1000, window=window, roi=roi, precision=T.FAST_PRECISION)
+    x = torch.as_tensor(_signal(C * M, 7).reshape(C, M), device=cuda_device)
+    pro = spectra.spectra_prologue(tp, T.init_state(tp, channels=C, device=cuda_device), x)
+    for form, dtype in spectra.STORES:
+        paced = (form, dtype) in spectra.PACED_FORMS
+        assert spectra.paced(1000, form, dtype) is paced
+        before = spectra.LAUNCHES, spectra.PACED_LAUNCHES
+        got = spectra.launch_spectra(tp, pro, form, dtype)
+        assert (spectra.LAUNCHES - before[0], spectra.PACED_LAUNCHES - before[1]) == (1, paced)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(spectra, "paced", lambda *args: not paced)
+            if not paced:
+                with pytest.raises(RuntimeError, match="sdft_spectra_launch"):
+                    spectra.launch_spectra(tp, pro, form, dtype)
+                continue
+            want = spectra.launch_spectra(tp, pro, form, dtype)
+        assert (spectra.LAUNCHES - before[0], spectra.PACED_LAUNCHES - before[1]) == (2, 1)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b), (form, dtype)
+        del got, want
     torch.cuda.synchronize()
 
 

@@ -255,8 +255,8 @@ def test_span_records_under_a_profiler(tmp_path):
 def test_counters_keys():
     got = tracing.counters()
     assert list(got) == ["graphs.captures", "graphs.evictions", "kernels.spectra.launches",
-                         "kernels.scan.launches", "kernels.split_mm.launches",
-                         "kernels.carry.launches",
+                         "kernels.spectra.paced_launches", "kernels.scan.launches",
+                         "kernels.split_mm.launches", "kernels.carry.launches",
                          "stream.pinned_copies", "stream.overlapped_copies",
                          "ops.lti.k2_blocks", "ops.lti.body_blocks"]
     assert all(isinstance(v, int) and v >= 0 for v in got.values())
