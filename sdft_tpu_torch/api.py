@@ -23,7 +23,8 @@ since ``kernel_supported`` takes float32 FD plans only.
 
 Under a profiler ``sdft``, ``sdft_power``, ``roundtrip``,
 ``roundtrip_hopped`` and ``refresh`` each lie in a span
-``sdft.api.<entry>`` (``tracing``).
+``sdft.api.<entry>`` (``tracing``), and the caller's transform inside
+``roundtrip`` in ``sdft.api.roundtrip.transform``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,12 @@ from .ops.synthesis import isdft_block
 from .ops.twofloat import isdft_block_df, sdft_block_df
 from .plan import Plan
 from .state import State, batch_state, stack_states
-from .tracing import spanned
+from .tracing import span, spanned
+
+#: ``roundtrip`` calls by route: the collapsed round trip (no transform)
+#: and the spectra materialized for a transform
+ROUNDTRIP_COLLAPSED = 0
+ROUNDTRIP_MATERIALIZED = 0
 
 
 def _samples(state: State, samples, ndims=(1, 2)) -> torch.Tensor:
@@ -190,16 +196,23 @@ def roundtrip(plan: Plan, state: State, samples, transform=None):
     same transform applied to ``sdft``'s packed spectra agree.  (The JAX
     package reads them from its XLA path here, api.py:128-139.)
 
+    ``ROUNDTRIP_COLLAPSED`` and ``ROUNDTRIP_MATERIALIZED`` count the calls
+    by route; the transform's call lies in ``sdft.api.roundtrip.transform``.
+
     Returns (new_state, y) with y (M,) or (C, M).
     """
+    global ROUNDTRIP_COLLAPSED, ROUNDTRIP_MATERIALIZED
     x = _samples(state, samples)
     if transform is None:
+        ROUNDTRIP_COLLAPSED += 1
         return lti.roundtrip_block_lti(plan, state, x)
+    ROUNDTRIP_MATERIALIZED += 1
     if kernel_supported(plan, x.shape[-1]):
         st, d = forward_block(plan, state, x)
     else:
         st, d = _per_channel(lambda s, xc: sdft_block(plan, s, xc), state, x)
-    z = transform(unpack(d))
+    with span("sdft.api.roundtrip.transform"):
+        z = transform(unpack(d))
     if tuple(z.shape) != tuple(d.shape[:-1]):
         raise ValueError(
             f"transform must preserve the spectra shape {tuple(d.shape[:-1])}, "

@@ -29,6 +29,9 @@ function once per key into a ``torch.cuda.CUDAGraph`` and replays it:
     key.  Nothing retries eagerly: CPU tensors never get here (callers
     test ``active`` and run their eager code on the CPU).
 
+``Carried`` is a graph of one stream's round trip that keeps the state
+in its static inputs from block to block (``Streamer.run``).
+
 ``get`` returns the graph itself, whose call returns the static outputs,
 and ``replay`` replays it once and returns them.  A caller of either reads
 the static outputs on the current stream before the next replay of any
@@ -325,6 +328,41 @@ def replay(name: str, static: tuple, fn, *args, mode: str = "global"):
 def run(name: str, static: tuple, fn, *args, mode: str = "global"):
     """``fn(*args)`` by replaying its graph; fresh outputs."""
     return clone(replay(name, static, fn, *args, mode=mode))
+
+
+class Carried:
+    """``fn(state, x) -> (state, y)`` as one graph for a caller that feeds
+    one stream's blocks in order (``Streamer.run``).  The graph writes the
+    new state back into its own static state inputs, so a replay copies
+    nothing in but the block's samples, which the caller writes into ``x``
+    itself, and clones nothing: a call returns the static ``y``, which the
+    caller copies out before it enqueues the next replay of any graph.
+    ``state`` is the carried state between replays; ``load`` puts a
+    caller's there.  The graph lies outside the cache (``get``), so only
+    its owner replays it; its span is the cached graph's,
+    ``sdft.graphs.replay.<name>``."""
+
+    def __init__(self, name: str, static: tuple, fn, state, x: torch.Tensor):
+        def carried(st, xs):
+            new, y = fn(st, xs)
+            for s, t in zip(leaves(st), leaves(new)):
+                s.copy_(t)
+            return y
+
+        args = (state, x)
+        self.graph = Graph(name, _key(name, static, leaves(args)), carried, args)
+        *held, self.x = self.graph._inputs
+        self.state = _rebuild(state, iter(held))
+        self.load(state)        # the warm-up calls moved the static state on
+
+    def load(self, state) -> None:
+        """Make ``state`` the carried one (copied in on the current stream)."""
+        for s, t in zip(leaves(self.state), leaves(state)):
+            s.copy_(t)
+
+    def __call__(self) -> torch.Tensor:
+        """One block from ``x`` and the carried state: its static ``y``."""
+        return self.graph(self.state, self.x)
 
 
 class Entry(NamedTuple):

@@ -396,6 +396,13 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
     accumulator).
     On the card the block replays as one graph (``graphs``).
     """
+    return _graphed(*roundtrip_lti_parts(plan, samples, k_tile), state, samples)
+
+
+def roundtrip_lti_parts(plan: Plan, samples: torch.Tensor, k_tile: int | None = None):
+    """(name, static, fn) of the collapsed round trip of blocks shaped as
+    ``samples``: ``fn(state, samples) -> (state, y)`` runs it eagerly, and
+    ``roundtrip_block_lti`` replays it as the graph (name, static)."""
     M = samples.shape[-1]
     K = k_tile or default_k_tile(M, plan.dftsize)
     if plan.precision.split4:
@@ -408,8 +415,7 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: torch.Tensor,
         dt, c0, st = carry(plan, st, x, fine)
         return st, _synthesize(plan, dt, c0, GLT, PQ, M)
 
-    return _graphed("roundtrip_block_lti", (plan, K),
-                    lambda st, x: _batched(run, st, x), state, samples)
+    return "roundtrip_block_lti", (plan, K), lambda st, x: _batched(run, st, x)
 
 
 def _fused_driver_nd(plan: Plan, state: State, samples: torch.Tensor, consts,

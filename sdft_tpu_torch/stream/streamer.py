@@ -14,6 +14,13 @@ chain k+1 is queued.  Every copy back lands in a fresh pinned tensor from
 torch's caching host allocator, so a yielded array is never overwritten
 under the caller.  Memory is O(block), independent of stream length.
 
+On a card ``run``'s collapsed round trip (no transform, the default ops)
+keeps the state in a graph of the Streamer's own, one per block shape
+(``graphs.Carried``): a block's samples go straight into the graph's
+input, one replay computes the block and leaves the new state in place,
+and the samples come home from the graph's output.  Nothing else is copied
+or allocated on the card a block.  Reading ``state`` copies it out.
+
 Checkpoint/resume: the resumable state is (offset, delayline, accumulator)
 plus the stream position; ``checkpoint``/``restore`` use the JAX package's
 ``.npz`` keys, so a checkpoint written by either package's Streamer
@@ -34,6 +41,7 @@ flight once the next chain was queued (``tracing.counters``).
 
 from __future__ import annotations
 
+import collections
 import pathlib
 from typing import Callable, Iterable, Iterator
 
@@ -45,7 +53,9 @@ from ..api import refresh as _refresh
 from ..api import roundtrip as _roundtrip
 from ..api import roundtrip_hopped as _roundtrip_hopped
 from ..api import sdft as _sdft
+from .. import graphs
 from ..cplx import to_numpy
+from ..ops.lti import roundtrip_lti_parts
 from ..plan import Plan
 from ..state import (State, init_state, require_device, state_from_arrays,
                      state_to_arrays)
@@ -115,11 +125,52 @@ class Streamer:
         self._forward = forward or (lambda st, x: _sdft(plan, st, x))
         self._inverse = inverse or (
             lambda d: _isdft(plan, torch.as_tensor(d, device=self.device)))
-        self.state: State = init_state(plan, channels, device=self.device)
+        # run's collapsed round trips on the card, by block shape and dtype
+        self._carried: collections.OrderedDict = collections.OrderedDict()
+        self._live = None       # the one of them that holds the state
+        self.state = init_state(plan, channels, device=self.device)
         self.samples_processed = 0
         # run_hopped's copies home, beside the stream that computes
         self._copier = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                         else None)
+
+    @property
+    def state(self) -> State:
+        """The carried state after the blocks queued so far.  ``run``'s
+        collapsed round trips keep it in their graph on the card; reading
+        it there copies it out into tensors no later block writes."""
+        if self._live is not None:
+            self._state = graphs.clone(self._live.state)
+            self._live = None
+        return self._state
+
+    @state.setter
+    def state(self, st: State) -> None:
+        self._state, self._live = st, None
+
+    def _carry(self, x: torch.Tensor):
+        """The graph that runs ``run``'s collapsed round trip of blocks
+        shaped as the host tensor ``x`` with the state in it (``graphs.
+        Carried``), or None where the round trip runs otherwise: on the
+        CPU, a transform, or forward/inverse ops of the caller's."""
+        if not (self._fused_roundtrip and graphs.active(self._state.offset)):
+            return None
+        key = (tuple(x.shape), x.dtype)
+        g = self._carried.get(key)
+        if g is None:
+            if len(self._carried) >= graphs.MAX_GRAPHS:
+                if self._live is self._carried.popitem(last=False)[1]:
+                    self.state      # copied out of the graph it leaves
+            xs = torch.zeros(x.shape, dtype=x.dtype, device=self.device)
+            g = self._carried[key] = graphs.Carried(
+                *roundtrip_lti_parts(self.plan, xs), self.state, xs)
+            self._live = g
+        else:
+            self._carried.move_to_end(key)
+            if self._live is not g:
+                g.load(self.state)
+                self._live = g
+        return g
 
     def _maybe_refresh(self) -> None:
         if self.refresh_every is None:
@@ -186,19 +237,35 @@ class Streamer:
             # neither copy syncs the stream: a pageable upload is staged at
             # once, and the copy back lands in a fresh pinned tensor
             with span("sdft.stream.upload"):
-                x = torch.as_tensor(to_numpy(block)).to(self.device, non_blocking=True)
-            y = self._step(x, transform, fuse_transform)
-            with span("sdft.stream.download"):
-                y = y.to("cpu", non_blocking=True)
-                done = None
-                if self.device.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(self.device))
+                host = torch.as_tensor(to_numpy(block))
+                g = self._carry(host) if transform is None else None
+                if g is None:
+                    x = host.to(self.device, non_blocking=True)
+                else:
+                    g.x.copy_(host, non_blocking=True)
+            if g is None:
+                copy = self._download(self._step(x, transform, fuse_transform))
+            else:
+                # y is the graph's static output: home before any other replay
+                copy = self._download(g())
+                self.samples_processed += host.shape[-1]
+                self._maybe_refresh()
             if pending is not None:
                 yield _wait(*pending)           # sync the *previous* block only
-            pending = y, done
+            pending = copy
         if pending is not None:
             yield _wait(*pending)
+
+    def _download(self, y: torch.Tensor) -> tuple:
+        """Enqueue ``y``'s copy home: a new host tensor (``y`` may be a
+        graph's static output) and the copy's event (None on the CPU)."""
+        with span("sdft.stream.download"):
+            y = y.to("cpu", non_blocking=True, copy=True)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+        return y, done
 
     def run_hopped(self, blocks: Iterable, hop: int, chain: int = 16
                    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:

@@ -14,15 +14,20 @@ The spans, by layer (every name starts ``sdft.``; none is open across a
 generator's ``yield``):
 
   * ``sdft.api.<entry>``: ``api.sdft``, ``sdft_power``, ``roundtrip``,
-    ``roundtrip_hopped``, ``refresh``, the whole call;
+    ``roundtrip_hopped``, ``refresh``, the whole call; inside
+    ``roundtrip``, ``sdft.api.roundtrip.transform``: the caller's transform;
   * ``sdft.graphs.replay.<graph>``: a graph's key and lookup, copy-in,
-    replay and launch bookkeeping; ``sdft.graphs.capture.<graph>``: its
+    replay and launch bookkeeping (a ``Streamer.run`` block: its carried
+    graph's replay alone); ``sdft.graphs.capture.<graph>``: its
     warm-up and capture; ``sdft.graphs.clone``: the clones of a replay's
     static outputs (``graphs``);
   * ``sdft.ops.lti.chain_block``: one block of ``roundtrip_hopped_chain``
     (``api.roundtrip_hopped``): its graph's replay, then K2's wrapper
     (hop = 1) or the copy into the stacked outputs, and a refresh due
     after it;
+  * ``sdft.ops.synthesis.isdft``: one block's synthesis from its spectra
+    (``ops.synthesis.isdft_block``: the twiddles, the planes, the product
+    and the weight);
   * ``sdft.kernels.spectra``, ``sdft.kernels.scan``: K1's and K2's launch
     wrappers (checks, output allocation, the launch);
   * ``sdft.stream.upload``, ``.download``, ``.wait``: the ``Streamer``'s
@@ -40,7 +45,10 @@ and carry launches (each kernel module's ``LAUNCHES``; K1's paced ones,
 still in flight once the next chain was queued (``stream.streamer``'s
 ``PINNED_COPIES``, ``OVERLAPPED_COPIES``), and the blocks
 ``roundtrip_hopped_chain`` ran through K2 and through the driver body
-(``ops.lti``'s ``K2_BLOCKS``, ``BODY_BLOCKS``).
+(``ops.lti``'s ``K2_BLOCKS``, ``BODY_BLOCKS``), the blocks synthesized
+from their spectra (``ops.synthesis.BLOCKS``), and ``api.roundtrip``'s
+calls by route, collapsed or with the spectra materialized for a transform
+(``api``'s ``ROUNDTRIP_COLLAPSED``, ``ROUNDTRIP_MATERIALIZED``).
 """
 
 from __future__ import annotations
@@ -77,10 +85,11 @@ def spanned(name: str):
 def counters() -> dict:
     """The port's counters since the process started (or a caller reset
     them): graphs captured and evicted, kernel launches, the Streamer's
-    pinned and overlapped copies home, the driver chain's blocks by route."""
-    from . import graphs
+    pinned and overlapped copies home, the driver chain's blocks by route,
+    the blocks synthesized, ``roundtrip``'s calls by route."""
+    from . import api, graphs
     from .kernels import carry, scan, spectra, split_mm
-    from .ops import lti
+    from .ops import lti, synthesis
     from .stream import streamer
 
     return {"graphs.captures": graphs.CAPTURES, "graphs.evictions": graphs.EVICTIONS,
@@ -91,4 +100,7 @@ def counters() -> dict:
             "kernels.carry.launches": carry.LAUNCHES,
             "stream.pinned_copies": streamer.PINNED_COPIES,
             "stream.overlapped_copies": streamer.OVERLAPPED_COPIES,
-            "ops.lti.k2_blocks": lti.K2_BLOCKS, "ops.lti.body_blocks": lti.BODY_BLOCKS}
+            "ops.lti.k2_blocks": lti.K2_BLOCKS, "ops.lti.body_blocks": lti.BODY_BLOCKS,
+            "ops.synthesis.blocks": synthesis.BLOCKS,
+            "api.roundtrip.collapsed": api.ROUNDTRIP_COLLAPSED,
+            "api.roundtrip.materialized": api.ROUNDTRIP_MATERIALIZED}

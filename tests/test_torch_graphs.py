@@ -612,15 +612,71 @@ def test_jax_made_state_continues_graphed_as_eager(stub, hop):
 def test_streamer_runs_through_the_graphs(stub):
     plan = T.Plan(128, window="hann", precision=T.FAST_PRECISION)
     blocks = list(_signal(4 * 512, seed=9).reshape(4, 512))
-    got = list(T.Streamer(plan, refresh_every=2, device="cpu").run(blocks))
+    s = T.Streamer(plan, refresh_every=2, device="cpu")
+    got = list(s.run(blocks))
     hopped = list(T.Streamer(plan, refresh_every=1, device="cpu").run_hopped(blocks, 64, 2))
-    assert {"roundtrip_block_lti", "refresh", "driver_chain_body"} <= set(_names())
+    assert {"refresh", "driver_chain_body"} <= set(_names())
+    # run's round trip replays a graph of the Streamer's own, outside the cache
+    assert [g.graph.name for g in s._carried.values()] == ["roundtrip_block_lti"]
     with graphs.disabled():
         want = list(T.Streamer(plan, refresh_every=2, device="cpu").run(blocks))
         want_h = list(T.Streamer(plan, refresh_every=1, device="cpu").run_hopped(blocks, 64, 2))
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
     assert all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                for a, b in zip(hopped, want_h))
+
+
+def test_streamer_carries_its_state_in_its_own_graph(stub, tmp_path):
+    """``run``'s collapsed round trip keeps the state in the Streamer's own
+    graph: one capture per block shape (a short last block takes a second),
+    none in the cache, no clone a block; reading the state between two
+    yields copies it out, and a checkpoint taken there resumes as eager;
+    two Streamers on one plan and shape never share a state."""
+    plan = T.Plan(128, window="hann", precision=T.FAST_PRECISION)
+    x = np.stack([_signal(5 * 512 + 200, seed=s) for s in (40, 41)])
+    blocks = list(T.iter_blocks(x, 512, pad=False)) + [x[:, 5 * 512:]]
+    with graphs.disabled():
+        e = T.Streamer(plan, channels=2, device="cpu")
+        want = list(e.run(blocks))
+    a, b = (T.Streamer(plan, channels=2, device="cpu") for _ in range(2))
+    ga, gb = a.run(blocks), b.run(blocks[::-1])
+    got = [next(ga)]
+    held = a.state                      # the state after blocks 0 and 1
+    a.checkpoint(tmp_path / "ck.npz")
+    got += [next(ga)]
+    next(gb)
+    got += list(ga)
+    assert all(np.array_equal(p, q) for p, q in zip(got, want)) and len(got) == len(want)
+    assert _equal(a.state, e.state)
+    assert [k[0] for k in a._carried] == [(2, 512), (2, 200)]
+    assert stub.captures == 4 and not _names()
+    with graphs.disabled():
+        e2 = T.Streamer(plan, channels=2, device="cpu")
+        list(e2.run(blocks[:2]))
+    assert _equal(held, e2.state)
+    r = T.Streamer(plan, channels=2, device="cpu")
+    r.restore(tmp_path / "ck.npz")
+    assert all(np.array_equal(p, q) for p, q in zip(r.run(blocks[2:]), want[2:]))
+
+
+@pytest.mark.parametrize("most", [1, 2])
+def test_streamer_carried_graphs_are_bounded(stub, monkeypatch, most):
+    """Past ``MAX_GRAPHS`` block shapes the Streamer drops the graph it
+    used least recently; the state it held moves out with it."""
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", most)
+    plan = T.Plan(128, window="hann", precision=T.FAST_PRECISION)
+    x = _signal(4 * 300, seed=42)
+    blocks = [x[:300], x[300:600], x[600:900], x[900:]]
+    lengths = [256, 300, 280, 300]
+    blocks = [np.concatenate([b, b])[:n] for b, n in zip(blocks, lengths)]
+    s = T.Streamer(plan, device="cpu")
+    got = list(s.run(blocks))
+    with graphs.disabled():
+        e = T.Streamer(plan, device="cpu")
+        want = list(e.run(blocks))
+    assert all(np.array_equal(p, q) for p, q in zip(got, want))
+    assert _equal(s.state, e.state)
+    assert [k[0] for k in s._carried] == [(280,), (300,)][2 - most:]
 
 
 # -- on the card --------------------------------------------------------------------
@@ -685,6 +741,34 @@ def test_cuda_graphed_equals_eager_bit_for_bit(cuda_device, path):
         eager = call()
     torch.cuda.synchronize()
     assert _equal(got, eager) and _equal(again, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 8])
+def test_cuda_streamer_carried_graph_equals_the_cached_one(cuda_device, channels):
+    """At the collapsed cells' shape (C x 44100, m = 1000, FP32), ``run``'s
+    carried graph gives the samples and the state of ``roundtrip``'s cached
+    graph bit for bit over five blocks, a state read after the second block
+    included; no yielded array aliases another."""
+    plan = T.Plan(1000, window="hann",
+                  precision=T.Precision("float32", "float32", mxu="highest"))
+    blocks = [np.stack([_signal(44100, seed=50 + 10 * b + c) for c in range(channels)])
+              for b in range(5)]
+    s = T.Streamer(plan, channels=channels)
+    run = s.run(blocks)
+    got = [next(run)]
+    mid = s.state
+    got += list(run)
+    st = T.init_state(plan, channels=channels, device=cuda_device)
+    want = []
+    for k, b in enumerate(blocks):
+        st, y = T.roundtrip(plan, st, torch.as_tensor(b, device=cuda_device))
+        want.append(y.cpu().numpy())
+        if k == 1:
+            assert _equal(mid, st)
+    assert len(got) == 5 and all(np.array_equal(p, q) for p, q in zip(got, want))
+    assert _equal(s.state, st)
+    assert len({a.__array_interface__["data"][0] for a in got}) == len(got)
 
 
 @pytest.mark.cuda
